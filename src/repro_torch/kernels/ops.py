@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ame_gemm import ame_gemm
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
@@ -21,3 +22,25 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
     if use_kernel and a.is_cuda:
         return ame_gemm(a, b, out_dtype=out_dtype, **blocks)
     return ref.gemm(a, b, out_dtype=out_dtype)
+
+
+def ssd(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
+    """Batched Mamba2 SSD scan, x (BH,T,P) (chunked in both paths — the
+    sequential recurrence lives only in ``ref.ssd_scan`` as the oracle)."""
+    if use_kernel and x.is_cuda:
+        return ssd_scan(x, log_a, b, c, chunk=chunk)
+    return ref.ssd_chunked(x, log_a, b, c, chunk=chunk)
+
+
+def ssd4(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
+    """4-D SSD: x (B,H,T,P), log_a (B,H,T), b/c (B,H,T,N).  The kernel
+    takes (B*H)-flattened contiguous rows, so a transposed input is copied
+    here."""
+    if use_kernel and x.is_cuda:
+        bsz, h, t, p = x.shape
+        y = ssd_scan(x.reshape(bsz * h, t, p).contiguous(),
+                     log_a.reshape(bsz * h, t).contiguous(),
+                     b.reshape(bsz * h, t, -1).contiguous(),
+                     c.reshape(bsz * h, t, -1).contiguous(), chunk=chunk)
+        return y.reshape(bsz, h, t, p)
+    return ref.ssd_chunked4(x, log_a, b, c, chunk=chunk)

@@ -1,1 +1,1 @@
-"""Dense transformer stack (port of ``repro.models``)."""
+"""Dense transformer and Mamba2 SSM stacks (port of ``repro.models``)."""

@@ -1,10 +1,12 @@
 """Parameters of the JAX reference, as numpy arrays, into the port.
 
 The port keeps the reference's parameter tree and layouts (layer-stacked
-leaves with a leading L axis under ``stack/dense_stack``, dense weights
-``(d_in, d_out)``), so the conversion map is the identity on paths: every
-leaf is copied, after its path and shape are checked against the port's
-own ``init`` on the meta device.
+leaves with a leading L axis under ``stack/dense_stack`` or
+``stack/ssm_stack``, dense weights ``(d_in, d_out)``), so the conversion
+map is the identity on paths: every leaf is copied, after its path and
+shape are checked against the port's own ``init`` on the meta device,
+and takes that leaf's dtype (the SSM's f32 ``a_log``, ``d_skip`` and
+``dt_bias`` stay f32 whatever the parameter dtype).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """The public model facade: init / make_caches / prefill / decode_step.
 
-Port of ``repro.models.model`` for the dense text family.  The parameter
-tree has the reference's structure and layout (``stack/dense_stack`` with
-a leading L axis, ``final_norm``, ``embed``, ``head`` when untied), so
-``models.convert`` maps reference parameters over one to one.
+Port of ``repro.models.model`` for the dense and SSM text families.  The
+parameter tree has the reference's structure and layout
+(``stack/dense_stack`` or ``stack/ssm_stack`` with a leading L axis,
+``final_norm``, ``embed``, ``head`` when untied), so ``models.convert``
+maps reference parameters over one to one.
 
 Entry points run on ``cuda`` unless the caller passes another device
 (the CPU tests pass ``device="cpu"``); asking for the card where there is
@@ -36,6 +37,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _family_fns(cfg: ArchConfig):
+    """``(stack_init, make_caches, stack_apply)`` of the family."""
+    if cfg.family == "ssm":
+        return tf.ssm_stack_init, tf.ssm_make_states, tf.ssm_stack_apply
+    return tf.decoder_init, tf.decoder_make_caches, tf.decoder_apply
+
+
 def _check(cfg: ArchConfig) -> None:
     tf.check_family(cfg)
     if cfg.modality != "text" or cfg.encoder_only:
@@ -52,7 +60,7 @@ def init(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     device = resolve_device(device)
     dtype = cfg.param_dtype_()
     p: Dict[str, Any] = {
-        "stack": tf.decoder_init(generator, cfg, dtype, device),
+        "stack": _family_fns(cfg)[0](generator, cfg, dtype, device),
         "final_norm": norm_init(cfg.d_model, dtype, device, cfg.norm),
         "embed": embed_init(generator, cfg.vocab_padded, cfg.d_model, dtype,
                             device),
@@ -103,8 +111,11 @@ def _logits(p, h_last, cfg: ArchConfig) -> torch.Tensor:
 
 
 def make_caches(cfg: ArchConfig, batch: int, length: int, device=None):
-    return tf.decoder_make_caches(cfg, batch, length, cfg.compute_dtype_(),
-                                  resolve_device(device))
+    """KV caches of ``length`` positions (dense) or recurrent states
+    (ssm), for ``batch`` sequences."""
+    _check(cfg)
+    return _family_fns(cfg)[1](cfg, batch, length, cfg.compute_dtype_(),
+                               resolve_device(device))
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
@@ -119,8 +130,9 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
     h = embed(params["embed"], tokens, cfg.compute_dtype_())
     positions = torch.arange(t, device=dev).expand(b, t)
     caches = make_caches(cfg, b, cache_len, dev)
-    h, caches = tf.decoder_apply(params["stack"], h, cfg, positions=positions,
-                                 caches=caches, backend=backend, causal=True)
+    h, caches = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                    positions=positions, caches=caches,
+                                    backend=backend, causal=True)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, h[:, -1], cfg), caches
 
@@ -132,8 +144,9 @@ def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
     _check(cfg)
     backend = as_backend(backend)
     h = embed(params["embed"], tokens, cfg.compute_dtype_())   # (B,1,d)
-    h, caches = tf.decoder_apply(params["stack"], h, cfg,
-                                 positions=positions[:, None], caches=caches,
-                                 backend=backend, causal=True)
+    h, caches = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                    positions=positions[:, None],
+                                    caches=caches, backend=backend,
+                                    causal=True)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, h[:, 0], cfg), caches

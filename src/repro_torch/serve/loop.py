@@ -3,11 +3,12 @@
 Port of ``repro.serve.loop.Server``.  A fixed decode batch of ``slots``;
 finished sequences free their slot and the next queued request is
 prefilled into it.  Greedy sampling (argmax).  The decode step runs over
-the whole slot batch and updates the KV cache in place.
+the whole slot batch and updates the KV cache (dense) or the recurrent
+state (ssm) in place.
 
-Every dense projection goes through ``backend``: ``"kernel"`` (default)
-launches the hand-written ``ame_gemm`` on the card, ``"torch"`` runs the
-plain version.  Unlike the reference, whose jitted steps always take the
+Every dense projection and the SSM prefill scan go through ``backend``:
+``"kernel"`` (default) launches the hand-written ``ame_gemm`` and
+``ssd_scan`` on the card, ``"torch"`` runs their plain versions.  Unlike the reference, whose jitted steps always take the
 default XLA backend, the backend reaches ``prefill`` and ``decode_step``.
 
 Request timestamps come from a :class:`~repro_torch.serve.traffic.

@@ -1,5 +1,5 @@
-"""K1 (ame_gemm) on the card: built from csrc/, held against its plain
-version, launches counted.  Marked ``gpu``: every test skips with a reason
+"""K1 (ame_gemm) and K4 (ssd_scan) on the card: built from csrc/, held
+against their plain versions, launches counted.  Marked ``gpu``: every test skips with a reason
 where there is no CUDA device (decided inside the fixture, never while the
 module is imported).  On the card: ``python -m pytest -m gpu tests``.
 """
@@ -8,6 +8,8 @@ import torch
 
 from repro_torch.kernels import ame_gemm as k1
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as k4
+from repro_torch.launch import hw
 
 pytestmark = pytest.mark.gpu
 
@@ -88,3 +90,101 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         k1.ame_gemm(a, b.t().contiguous().t())
     with pytest.raises(TypeError):
         k1.ame_gemm(a, b.half())
+
+
+# ---------------------------------------------------------------------------
+# K4 ssd_scan
+# ---------------------------------------------------------------------------
+
+#: the reference's values (tests/test_kernels.py:104-105), by x's dtype
+SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
+           torch.bfloat16: dict(atol=0.08, rtol=0.08)}
+
+
+def _ssd_inputs(bh, t, p, n, xdt, bdt, device, seed=0):
+    """x, b, c ~ 0.5 N(0,1) and log_a = -|0.2 N(0,1)|, as the reference
+    tests draw them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(bh, t, p, generator=g, device=device) * 0.5).to(xdt)
+    la = -(torch.randn(bh, t, generator=g, device=device) * 0.2).abs()
+    b = (torch.randn(bh, t, n, generator=g, device=device) * 0.5).to(bdt)
+    c = (torch.randn(bh, t, n, generator=g, device=device) * 0.5).to(bdt)
+    return x, la, b, c
+
+
+@pytest.mark.parametrize("xdt,bdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "f32-x-bf16-bc", "bf16-x-f32-bc"])
+@pytest.mark.parametrize("bh,t,p,n,chunk", [
+    (2, 64, 16, 8, 16), (1, 100, 32, 16, 32), (3, 33, 8, 4, 16),
+    (1, 16, 8, 8, 16), (32, 37, 64, 128, 128), (32, 300, 64, 128, 128),
+    (4, 129, 40, 24, 64)])
+def test_ssd_kernel_matches_plain(cuda, bh, t, p, n, chunk, xdt, bdt):
+    x, la, b, c = _ssd_inputs(bh, t, p, n, xdt, bdt, cuda)
+    got = k4.ssd_scan(x, la, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == xdt and got.shape == (bh, t, p)
+    torch.testing.assert_close(
+        got.float(), ref.ssd_chunked(x, la, b, c, chunk=chunk).float(),
+        **SSD_TOL[xdt])
+
+
+def test_ssd_kernel_carries_state_across_chunks(cuda):
+    x = torch.zeros(1, 64, 4, device=cuda)
+    x[0, 0] = 1.0
+    la = torch.full((1, 64), -0.01, device=cuda)
+    ones = torch.ones(1, 64, 4, device=cuda)
+    got = k4.ssd_scan(x, la, ones, ones, chunk=16)
+    torch.cuda.synchronize()
+    assert float(got[0, -1].abs().max()) > 0.1
+    torch.testing.assert_close(got, ref.ssd_scan(x, la, ones, ones),
+                               **SSD_TOL[torch.float32])
+
+
+def test_ssd4_takes_transposed_inputs(cuda):
+    x, la, b, c = _ssd_inputs(6, 50, 16, 8, torch.float32, torch.bfloat16,
+                              cuda)
+    four = [v.reshape(2, 3, *v.shape[1:]) for v in (x, la, b, c)]
+    # (B,T,H,*) stored, (B,H,T,*) seen — as the model hands them over
+    tr = [v.transpose(1, 2).contiguous().transpose(1, 2) for v in four]
+    assert not tr[0].is_contiguous()
+    got = ops.ssd4(*tr, use_kernel=True, chunk=32)
+    torch.testing.assert_close(got, ref.ssd_chunked4(*four, chunk=32),
+                               **SSD_TOL[torch.float32])
+
+
+def test_ssd_launch_counter_counts_kernel_launches_only(cuda):
+    x, la, b, c = _ssd_inputs(2, 20, 8, 4, torch.float32, torch.float32,
+                              cuda)
+    before = k4.launches
+    ops.ssd(x, la, b, c, use_kernel=True, chunk=8)
+    ops.ssd(x, la, b, c, use_kernel=False, chunk=8)
+    ops.ssd(x.cpu(), la.cpu(), b.cpu(), c.cpu(), use_kernel=True, chunk=8)
+    assert k4.launches == before + 1
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, la, b, c = _ssd_inputs(2, 20, 8, 4, torch.float32, torch.float32,
+                              cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.ssd_scan(x, la.cpu(), b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), la, b, c)
+    with pytest.raises(TypeError):
+        k4.ssd_scan(x.half(), la, b, c)
+    with pytest.raises(TypeError):
+        k4.ssd_scan(x, la.bfloat16(), b, c)
+    with pytest.raises(TypeError):
+        k4.ssd_scan(x, la, b, c.bfloat16())
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.ssd_scan(*_ssd_inputs(1, 256, 8, 128, torch.float32,
+                                 torch.float32, cuda), chunk=256)
+
+
+def test_ssd_smem_claim_matches_the_source_and_fits(cuda):
+    lib = k4._lib()
+    for l, n in ((128, 128), (64, 128), (16, 4), (100, 24)):
+        assert lib.ssd_scan_smem_bytes(l, n) == k4.smem_bytes(l, n)
+    assert k4.smem_bytes(128, 128) < hw.SMEM_PER_BLOCK

@@ -136,8 +136,8 @@ def test_unported_families_raise():
                                                   d_ff_expert=64))
     with pytest.raises(NotImplementedError, match="moe"):
         lm.init(moe, device="meta")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        lm.make_caches(cfg.replace(family="ssm"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        lm.make_caches(cfg.replace(family="hybrid"), 1, 8, device="cpu")
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):
