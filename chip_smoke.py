@@ -19,7 +19,27 @@ Phases (any failure exits non-zero and prints no result line):
              shapes (BH 32, P 64, N 128, chunk 128, f32 x, bf16 b/c) at
              T = 37, 64, 300 (two chunk boundaries, padded third chunk) and
              2048; time kernel and plain version beside the bound.
-5. serve   — full-width qwen3-1.7b (28 layers) and then full-width
+5. elementwise — hold K2 (ame_elementwise) bit for bit against its plain
+             version: the reference's shapes x 3 kinds x 3 dtypes, with and
+             without ReLU, NaN / inf / -0 / denormal inputs, a misaligned
+             view; time it at the AME max tile (128, 4096) f16 and at
+             (8192, 8192) bf16 beside torch.add/sub/mul and the bytes bound.
+6. attention — hold K3 (flash_attention) against its plain version within
+             the reference's tolerances: its six test shapes in f32 and
+             bf16, its block sweep, and four model shapes in bf16 (qwen3
+             prefill, chunked decode, a Mixtral sliding window, gemma-2b's
+             head dim 256); time them beside scaled_dot_product_attention
+             and the bound.
+7. engine  — quickstart part 1 through repro_torch.core on the card: mfadd,
+             mfsub, mfmax refused, mfmacc, the modeled Aquabolt-XL headline
+             (59.4 FLOP/cycle, 14.9 GFLOP/s, 256 launches); the batched
+             executors bit-exact with the numpy strict interpreter, and
+             ew_on_engine_batched bit-exact with K2 on f16 add/sub/mul.
+8. ops     — the ops entry point (this slice's path): ops.elementwise and
+             ops.attention at the model shapes, every kernel count set to
+             0 just before and read just after; outputs held against the
+             plain versions.
+9. serve   — full-width qwen3-1.7b (28 layers) and then full-width
              mamba2-370m (48 layers), f32 parameters and bf16 compute from
              a seeded generator, each serves seeded requests through
              ``Server(backend="kernel")`` with every kernel count set to 0
@@ -30,7 +50,7 @@ Phases (any failure exits non-zero and prints no result line):
              decode step (and, for mamba, a 300-token prefill) is timed and
              profiled; a reduced model on the card is held against the same
              model on the CPU.
-6. report  — one JSON line of every ported kernel, then the last line
+10. report — one JSON line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -49,6 +69,31 @@ K1_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (0.06, 0.06)}
 #: K4's tolerance against its plain version, per x dtype (atol, rtol): the
 #: reference's values (tests/test_kernels.py:104-105)
 K4_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (0.08, 0.08)}
+#: K3's tolerance against its plain version, per dtype: the reference's
+#: values (tests/test_kernels.py:20-22); f32 sums run in another order, bf16
+#: outputs may round one ulp apart
+K3_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (0.06, 0.06)}
+#: K3 at the model shapes in bf16, (atol, rtol): one bf16 ulp.  The kernel
+#: and the plain version both compute in f32 and round once to bf16, so
+#: they differ only where f32 sum-order noise crosses a rounding edge, by
+#: at most ulp(x) <= 2^-7 |x|.
+K3_MODEL_TOL = (2e-3, 8e-3)
+#: q and k at the model shapes are unit normals times this, so the scores
+#: have std 3 and the softmax is peaked; v is unit normal.  Outputs are then
+#: O(1), and a dropped, mis-skipped or mis-masked KV tile moves them far
+#: past K3_MODEL_TOL (at the reference's 0.5 scale they average thousands
+#: of keys and stay under its bf16 limit of 0.06 whatever the kernel does).
+K3_MODEL_QK_SCALE = 3 ** 0.5
+#: K3 at the model shapes (bf16): name, (BH, Tq, Tk, D), causal, window
+K3_MODEL_CASES = [
+    ("qwen3-1.7b prefill", (16, 2048, 2048, 128), True, 0),
+    ("chunked decode", (64, 16, 1024, 128), True, 0),
+    ("mixtral-8x22b window", (48, 8192, 8192, 128), True, 4096),
+    ("gemma-2b prefill", (8, 2048, 2048, 256), True, 0),
+]
+#: K2 at the model shapes: the AME max tile in FP16 (cost.max_tile_mfmacc)
+#: and a bf16 pair of 128 MiB operands, past the 50 MB L2
+K2_MODEL_CASES = [((128, 4096), "float16"), ((8192, 8192), "bfloat16")]
 #: serve: the longest prompt's prefill logits under backend="kernel" vs
 #: "torch" on the card, (atol, rtol).  With f32 compute only the order of
 #: the sums differs, so a wrong kernel cannot hide there (logits of the
@@ -295,6 +340,410 @@ def phase_ssd(cfg):
     return records
 
 
+def _bits_equal(got, want):
+    """(bit-exact, max |got - want| over non-NaN entries): equal shape,
+    dtype and bits, NaN where the other is NaN (a NaN's payload is the
+    hardware's, not the function's)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    ints = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got[~nan].view(ints), want[~nan].view(ints)))
+    keep = ~(nan | torch.isnan(got))
+    err = float((got[keep].float() - want[keep].float()).abs().max()) \
+        if bool(keep.any()) else 0.0
+    return same, err
+
+
+def _rotation(nbytes):
+    """How many copies of a call's operands to cycle through so that the
+    copies together exceed the 50 MB L2 four times (at most 64)."""
+    return max(1, min(64, -(-4 * 50 * 2 ** 20 // nbytes)))
+
+
+def phase_elementwise(dev):
+    """K2 bit for bit against its plain version; returns records."""
+    import torch
+    from repro_torch.kernels import elementwise as k2
+    from repro_torch.kernels import ref
+    from repro_torch.launch import hw
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+    lib = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            1e-40, -1e-40, 6e-8, -3e-39], device=dev)
+
+    def pair(m, c, dt):
+        return [torch.randn(m, c, generator=gen, device=dev).to(dt)
+                for _ in range(2)]
+
+    cases = [("test", (m, c), dt, kind, relu)
+             for m, c in ((128, 2048), (57, 129), (1, 8))
+             for dt in dtypes for kind in lib for relu in (False, True)]
+    cases += [("specials", (4, 37), dt, kind, relu) for dt in dtypes
+              for kind in lib for relu in (False, True)]
+    cases += [("misaligned", (33, 64), dt, kind, True) for dt in dtypes
+              for kind in lib]
+    cases += [("model", shape, dt, kind, False)
+              for shape, dt in K2_MODEL_CASES for kind in lib]
+    records, bad = [], []
+    for what, (m, c), dt_name, kind, relu in cases:
+        dt = dtypes[dt_name]
+        a, b = pair(m, c, dt)
+        if what == "specials":
+            a[0, :8] = special.to(dt)
+            a[3, -8:] = special.to(dt)
+            b[1, :8] = special.to(dt)
+        elif what == "misaligned":
+            base = torch.randn(m * c + 1, generator=gen, device=dev).to(dt)
+            a = base[1:].view(m, c)          # contiguous, not 16-B aligned
+        got = k2.ame_elementwise(a, b, kind=kind, relu=relu)
+        torch.cuda.synchronize()
+        same, err = _bits_equal(got, ref.elementwise(kind, a, b, relu=relu))
+        if what == "specials" and relu and not bool(torch.isnan(got[0, 0])):
+            same = False                     # ReLU must pass a NaN through
+        rec = dict(kind=what, shape=(m, c), dtype=dt_name, op=kind,
+                   relu=relu, bit_exact=same, max_abs_err=err)
+        if what == "model":
+            nbytes = 3 * m * c * a.element_size()
+            args = [(a, b)] + [tuple(pair(m, c, dt))
+                               for _ in range(_rotation(nbytes) - 1)]
+            rec.update(
+                ms=timed_ms(lambda x, y: k2.ame_elementwise(x, y, kind=kind),
+                            args, 20),
+                plain_ms=timed_ms(lambda x, y: ref.elementwise(kind, x, y),
+                                  args, 20),
+                library_ms=timed_ms(lib[kind], args, 20),
+                bound_ms=1e3 * nbytes / hw.HBM_BW, bound_by="bytes")
+            log(f"[elementwise] ame_elementwise {kind} {(m, c)} {dt_name}: "
+                f"bit-exact {same} | kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, torch.{kind} "
+                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"(bytes)")
+        records.append(rec)
+        if not same:
+            bad.append(rec)
+    log(f"[elementwise] {len(records)} cases, "
+        f"{sum(r['bit_exact'] for r in records)} bit-exact with the plain "
+        f"version")
+    if bad:
+        raise AssertionError(f"K2 differs from its plain version: {bad}")
+    return records
+
+
+def visible_pairs(tq, tk, causal, window):
+    """(query, key) pairs the masks keep, queries end-aligned."""
+    total = 0
+    for i in range(tq):
+        qpos = i + tk - tq
+        hi = min(tk - 1, qpos) if causal else tk - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def k3_bound(bh, tq, tk, d, causal, window, itemsize):
+    """(bound ms, "bytes" | "operations") of one flash_attention call:
+    q, k, v read once and o written once; 4 D FLOPs per visible pair (q k^T
+    and p v) at the bf16 tensor-core peak."""
+    from repro_torch.launch import hw
+    t_bytes = bh * (2 * tq + 2 * tk) * d * itemsize / hw.HBM_BW
+    t_ops = 4 * d * bh * visible_pairs(tq, tk, causal, window) \
+        / hw.PEAK_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sdpa(causal, window, tq, tk, dev):
+    """torch's scaled_dot_product_attention on (BH, T, D) operands with the
+    reference's end-aligned masks.  Its ``is_causal`` is top-left aligned,
+    so it is used only where that is the same (Tq == Tk, no window); else
+    an explicit boolean mask built for end alignment."""
+    import torch
+    import torch.nn.functional as F
+    mask = None
+    if window > 0 or (causal and tq != tk):
+        qpos = torch.arange(tq, device=dev)[:, None] + (tk - tq)
+        kpos = torch.arange(tk, device=dev)[None, :]
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+    is_causal = causal and mask is None
+
+    def call(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask,
+            is_causal=is_causal)[0]
+    return call
+
+
+def _model_qkv(bh, tq, tk, d, gen, dev):
+    """bf16 q, k, v of a model case: peaked scores, O(1) outputs."""
+    import torch
+    return [(torch.randn(bh, t, d, generator=gen, device=dev) * s).bfloat16()
+            for t, s in ((tq, K3_MODEL_QK_SCALE), (tk, K3_MODEL_QK_SCALE),
+                         (tk, 1.0))]
+
+
+def phase_attention(dev):
+    """K3 against its plain version; returns records."""
+    import torch
+    from repro_torch.kernels import attention as k3
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tests = [(2, 64, 64, 32, True, 0), (1, 128, 128, 64, True, 0),
+             (1, 100, 100, 32, True, 0), (2, 64, 64, 32, False, 0),
+             (1, 128, 128, 32, True, 48), (1, 16, 128, 32, True, 0)]
+    cases = [("test", shape[:4], shape[4], shape[5], dt, None)
+             for shape in tests for dt in (f32, bf16)]
+    cases += [("sweep", (1, 96, 96, 32), True, 0, f32, blocks)
+              for blocks in k3.BLOCKS]
+    # a window wider than block_k over T > 2 block_k: the kernel starts
+    # later query blocks' KV walk past tile 0 (kbeg > 0), checked in f32
+    cases += [("window f32", (2, 512, 512, 128), True, 200, f32, None)]
+    cases += [(name, shape, causal, window, bf16, None)
+              for name, shape, causal, window in K3_MODEL_CASES]
+    records, bad = [], []
+    for what, (bh, tq, tk, d), causal, window, dt, blocks in cases:
+        model = what not in ("test", "sweep", "window f32")
+        if model:
+            q, k, v = _model_qkv(bh, tq, tk, d, gen, dev)
+        else:
+            q, k, v = [(torch.randn(bh, t, d, generator=gen, device=dev)
+                        * 0.5).to(dt) for t in (tq, tk, tk)]
+        kw = dict(causal=causal, window=window)
+        if blocks:
+            kw.update(block_q=blocks[0], block_k=blocks[1])
+        got = k3.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        dt_name = str(dt).removeprefix("torch.")
+        atol, rtol = K3_MODEL_TOL if model else K3_TOL[dt_name]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = got.shape == want.shape and got.dtype == want.dtype and bool(
+            (diff <= atol + rtol * want.float().abs()).all())
+        rec = dict(kind=what, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
+                   window=window, dtype=dt_name,
+                   blocks=blocks or k3.default_blocks(d), max_abs_err=err,
+                   atol=atol, rtol=rtol, ok=ok)
+        line = (f"[attention] flash_attention {what:20s} (bh,tq,tk,d)="
+                f"{(bh, tq, tk, d)} causal={causal} window={window} "
+                f"{dt_name} blocks={rec['blocks']}: max_abs_err={err:.3g} "
+                f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+        if model:
+            # the limit must be able to fail a wrong kernel: the plain
+            # outputs have to stand well clear of it
+            rec["plain_mean_abs"] = float(want.float().abs().mean())
+            line += f"; mean |plain| {rec['plain_mean_abs']:.3g}"
+            if rec["plain_mean_abs"] < 10 * (atol + rtol):
+                ok = rec["ok"] = False
+                line += " (too close to the limit to test the kernel)"
+            lib = _sdpa(causal, window, tq, tk, dev)
+            lib_diff = (lib(q, k, v).float() - want.float()).abs()
+            lib_err = float(lib_diff.max())
+            lib_atol, lib_rtol = K3_TOL["bfloat16"]
+            iters = 3 if tq * tk > 2 ** 24 else 10
+            rec.update(
+                ms=timed_ms(lambda *a: k3.flash_attention(*a, **kw),
+                            [(q, k, v)], iters),
+                plain_ms=timed_ms(lambda *a: ref.attention(*a, **kw),
+                                  [(q, k, v)], iters),
+                library_ms=timed_ms(lib, [(q, k, v)], iters),
+                library_max_abs_err=lib_err)
+            rec["bound_ms"], rec["bound_by"] = k3_bound(
+                bh, tq, tk, d, causal, window, q.element_size())
+            # SDPA rounds p to bf16 before p @ v, so it is held to the
+            # reference's bf16 limit: with O(1) outputs a wrong mask
+            # still lands far past it
+            if not bool((lib_diff <= lib_atol
+                         + lib_rtol * want.float().abs()).all()):
+                ok = rec["ok"] = False
+                line += f"; SDPA's mask disagrees ({lib_err:.3g})"
+            line += (f" | kernel {rec['ms']:.4f} ms, plain "
+                     f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f}"
+                     f" ms (max_abs_err {lib_err:.3g} vs plain), bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        log(line)
+        records.append(rec)
+        if not ok:
+            bad.append(rec)
+    if bad:
+        raise AssertionError(f"K3 disagrees with its plain version: {bad}")
+    return records
+
+
+def _strict_ew(kind, a, b):
+    """The numpy strict interpreter's mf<kind> of two FP16 tiles."""
+    from repro_torch.core import pep
+    ch, mm = pep.init_channel(nblocks=4096, b_region_blocks=64, tile_cols=64)
+    pep.tile_to_banks(ch.state.even_banks, mm.tiles[0], a)
+    pep.tile_to_banks(ch.state.even_banks, mm.tiles[1], b)
+    pep.run_ew_strict(ch, mm, kind, mm.tiles[0], mm.tiles[1], mm.accs[0],
+                      a.shape[1])
+    return pep.banks_to_tile(ch.state.odd_banks, mm.accs[0], *a.shape)
+
+
+def _strict_mac(a, b):
+    """The numpy strict interpreter's mfmacc of FP16 A (m,k) @ B (k,n)."""
+    import numpy as np
+    from repro_torch.core import pep
+    (m, k), n = a.shape, b.shape[1]
+    ch, mm = pep.init_channel(nblocks=4096, b_region_blocks=64, tile_cols=64)
+    pep.tile_to_banks(ch.state.even_banks, mm.tiles[0], a)
+    pep.scalars_to_bank0(ch.state.even_banks, mm.b_scalars, b.T)
+    pep.tile_to_banks(ch.state.odd_banks, mm.accs[0],
+                      np.zeros((m, n), np.float16))
+    pep.run_mac_strict(ch, mm, mm.tiles[0], mm.accs[0], k, n)
+    return pep.banks_to_tile(ch.state.odd_banks, mm.accs[0], m, n)
+
+
+def phase_engine(dev):
+    """Quickstart part 1 through repro_torch.core on the card, the modeled
+    headline, and the engine's numerics bit for bit against the strict
+    interpreter and K2."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (AMEEngine, UnsupportedOnPIM,
+                                  ew_on_engine_batched,
+                                  gemm_on_engine_batched, max_tile_mfmacc,
+                                  saturated_flop_per_cycle)
+    from repro_torch.core.isa import PIM_FREQ_HZ
+    from repro_torch.kernels import elementwise as k2
+
+    rng = np.random.default_rng(0)
+    eng = AMEEngine(device=dev)
+    a = torch.as_tensor(rng.standard_normal((128, 64)) * 0.3,
+                        dtype=torch.float16, device=dev)
+    b = torch.as_tensor(rng.standard_normal((128, 64)) * 0.3,
+                        dtype=torch.float16, device=dev)
+    eng.msettilem(128), eng.msettilek(64)
+    eng.mld(0, a)
+    eng.mld(1, b)
+    rep = eng.mfadd(0, 0, 1)
+    log(f"[engine] mfadd.h.mm 128x64: {rep.cycles:.0f} cycles "
+        f"({rep.flop_per_cycle:.1f} FLOP/cycle)")
+    rep = eng.mfsub(0, 0, 1)
+    log(f"[engine] mfsub.h.mm 128x64: {rep.cycles:.0f} cycles (emulated, "
+        f"{rep.flop_per_cycle:.1f} FLOP/cycle)")
+    try:
+        eng.mfmax(0, 0, 1)
+        raise AssertionError("mfmax.h.mm ran; Table 1 has no PIM mapping")
+    except UnsupportedOnPIM as e:
+        log(f"[engine] mfmax.h.mm: refused -> {e}")
+    eng2 = AMEEngine(device=dev)
+    w = torch.as_tensor(rng.standard_normal((64, 32)) * 0.3,
+                        dtype=torch.float16, device=dev)
+    eng2.msettilem(128), eng2.msettilek(64), eng2.msettilen(32)
+    eng2.mld(0, a)
+    eng2.mld(1, w)
+    rep = eng2.mfmacc(0, 0, 1)
+    out = eng2.mst(0)
+    if out.device != a.device:
+        raise AssertionError(f"engine output on {out.device}, not the card")
+    err = float((out.float() - a.float() @ w.float()).abs().max())
+    log(f"[engine] mfmacc.h 128x64x32: {rep.cycles:.0f} cycles, max err vs "
+        f"fp32 {err:.3f}")
+    if not err < 0.05:
+        raise AssertionError(f"mfmacc differs from fp32 by {err}")
+
+    head = max_tile_mfmacc()
+    sat = saturated_flop_per_cycle("mac")
+    log(f"[engine] modeled Aquabolt-XL cycles (independent of the machine): "
+        f"mfmacc at 128x4096 tiles {head.flop_per_cycle:.1f} FLOP/cycle "
+        f"with setup, {sat:.2f} saturated, {sat * PIM_FREQ_HZ / 1e9:.2f} "
+        f"GFLOP/s at 250 MHz, {head.launches} MAC-PEP launches  "
+        f"[paper: 59.4 / 14.9 / 256]")
+    if abs(sat - 59.4) >= 0.1 or abs(sat * PIM_FREQ_HZ / 1e9 - 14.9) >= 0.1 \
+            or head.launches != 256:
+        raise AssertionError("the modeled headline is not 59.4 / 14.9 / 256")
+
+    checks = {}
+    a16 = (rng.standard_normal((128, 40)) * 0.5).astype(np.float16)
+    b16 = (rng.standard_normal((40, 8)) * 0.5).astype(np.float16)
+    got = gemm_on_engine_batched(AMEEngine(device=dev),
+                                 torch.from_numpy(a16).to(dev),
+                                 torch.from_numpy(b16).to(dev))
+    checks["gemm_on_engine_batched (128,40,8) vs strict"] = np.array_equal(
+        got.cpu().numpy().view(np.int16), _strict_mac(a16, b16).view(np.int16))
+    x16 = rng.standard_normal((77, 19)).astype(np.float16)
+    y16 = rng.standard_normal((77, 19)).astype(np.float16)
+    for kind in ("add", "sub", "mul"):
+        got = ew_on_engine_batched(AMEEngine(device=dev), kind,
+                                   torch.from_numpy(x16).to(dev),
+                                   torch.from_numpy(y16).to(dev))
+        checks[f"ew_on_engine_batched {kind} (77,19) vs strict"] = \
+            np.array_equal(got.cpu().numpy().view(np.int16),
+                           _strict_ew(kind, x16, y16).view(np.int16))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ta, tb = [torch.randn(128, 4096, generator=gen, device=dev).half()
+              for _ in range(2)]
+    for kind in ("add", "sub", "mul"):
+        got = ew_on_engine_batched(AMEEngine(device=dev), kind, ta, tb)
+        checks[f"ew_on_engine_batched {kind} (128,4096) vs K2"] = \
+            _bits_equal(k2.ame_elementwise(ta, tb, kind=kind), got)[0]
+    torch.cuda.synchronize()
+    for name, same in checks.items():
+        log(f"[engine] {name}: {'bit-exact' if same else 'DIFFERS'}")
+    if not all(checks.values()):
+        raise AssertionError("the engine's numerics differ on the card")
+
+
+def phase_ops(dev):
+    """This slice's path, through the ops entry point: ops.elementwise and
+    ops.attention at the model shapes, the kernel counts set to 0 just
+    before and read just after; returns the launches."""
+    import torch
+    from repro_torch.kernels import attention as k3
+    from repro_torch.kernels import elementwise as k2
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dtypes = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+    ew_in = [(kind, [torch.randn(*shape, generator=gen, device=dev)
+                     .to(dtypes[dt]) for _ in range(2)])
+             for shape, dt in K2_MODEL_CASES for kind in ("add", "sub", "mul")]
+    attn_in = [(causal, window, _model_qkv(bh, tq, tk, d, gen, dev))
+               for _, (bh, tq, tk, d), causal, window in K3_MODEL_CASES]
+    torch.cuda.synchronize()
+    k2.launches = k3.launches = 0                     # the ops path starts
+    ew_out = [ops.elementwise(kind, a, b, use_kernel=True)
+              for kind, (a, b) in ew_in]
+    attn_out = [ops.attention(q, k, v, causal=causal, window=window,
+                              use_kernel=True)
+                for causal, window, (q, k, v) in attn_in]
+    torch.cuda.synchronize()
+    launches = {"ame_elementwise": k2.launches,      # the ops path ends
+                "flash_attention": k3.launches}
+    log(f"[ops] ops.elementwise x {len(ew_in)}, ops.attention x "
+        f"{len(attn_in)}: launches {launches}")
+    if launches != {"ame_elementwise": len(ew_in),
+                    "flash_attention": len(attn_in)}:
+        raise AssertionError("the ops path did not launch each kernel once "
+                             "per call")
+    for (kind, (a, b)), got in zip(ew_in, ew_out):
+        if not _bits_equal(got, ref.elementwise(kind, a, b))[0]:
+            raise AssertionError(f"ops.elementwise {kind} {tuple(a.shape)} "
+                                 f"differs from its plain version")
+    atol, rtol = K3_MODEL_TOL
+    for (causal, window, (q, k, v)), got in zip(attn_in, attn_out):
+        want = ref.attention(q, k, v, causal=causal, window=window).float()
+        if not (got.shape == q.shape and torch.isfinite(got).all()
+                and ((got.float() - want).abs()
+                     <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"ops.attention {tuple(q.shape)} differs "
+                                 f"from its plain version")
+    return launches
+
+
 def _prompts(cfg):
     """Six seeded prompts of 8-64 tokens; for mamba2-370m the last is
     LONG_PROMPT tokens, so the server runs the multi-chunk scan."""
@@ -539,10 +988,13 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-def kernels_line(k1_records, k4_records, serves):
+def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
+                 ops_launches):
     """K1's entry: one qwen3 decode layer's seven calls at M = SLOTS,
     summed.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
-    of the mamba serve.  ``launches``: both main paths' counts."""
+    of the mamba serve.  K2's: an (8192, 8192) bf16 add.  K3's: one
+    qwen3-1.7b layer's causal prefill attention.  ``launches``: each
+    kernel's count on the paths that run it (the serves, the ops path)."""
     layer = [r for r in k1_records
              if r["model"] == "qwen3-1.7b" and r["m"] == SLOTS]
     total = {key: sum(r[key] for r in layer)
@@ -552,6 +1004,10 @@ def kernels_line(k1_records, k4_records, serves):
     by_path = {name: {model: s["launches"][name]
                       for model, s in serves.items()}
                for name in ("ame_gemm", "ssd_scan")}
+    ew = [r for r in k2_records if r["kind"] == "model"
+          and r["shape"] == (8192, 8192) and r["op"] == "add"][0]
+    at = [r for r in k3_records if r["kind"] == "qwen3-1.7b prefill"][0]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"kernels": [{
         "name": "ame_gemm",
         "route": "cuda",
@@ -585,6 +1041,29 @@ def kernels_line(k1_records, k4_records, serves):
                 f"prefill: (BH,T,P,N)=({main['bh']},{main['t']},"
                 f"{main['p']},{main['n']}), chunk {main['chunk']}, f32 x, "
                 f"bf16 b/c; no single PyTorch call computes it",
+    }, {
+        "name": "ame_elementwise",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ame_elementwise.cu",
+        "replaces": "src/repro/kernels/elementwise.py:50",
+        "launches": ops_launches["ame_elementwise"],
+        "launches_by_path": {"ops": ops_launches["ame_elementwise"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k2_records),
+        **{key: ew[key] for key in timed},
+        "work": "mfadd of an (8192, 8192) bf16 pair (128 MiB per operand); "
+                "library torch.add",
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention.py:87",
+        "launches": ops_launches["flash_attention"],
+        "launches_by_path": {"ops": ops_launches["flash_attention"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k3_records),
+        **{key: at[key] for key in timed},
+        "work": f"one qwen3-1.7b layer's causal prefill attention, "
+                f"(BH,T,D)=({at['bh']},{at['tq']},{at['d']}), bf16; library "
+                f"scaled_dot_product_attention",
     }]}
 
 
@@ -597,11 +1076,17 @@ def main() -> int:
     k1_records = phase_kernels([qwen, mamba])
     k4_records = phase_ssd(mamba)
     dev = torch.device("cuda", torch.cuda.current_device())
+    k2_records = phase_elementwise(dev)
+    k3_records = phase_attention(dev)
+    phase_engine(dev)
+    ops_launches = phase_ops(dev)
+    torch.cuda.empty_cache()
     serves = {}
     for cfg, small_prompt in ((qwen, 16), (mamba, 40)):
         serves[cfg.name] = phase_serve(cfg, dev)
         phase_small_reference(cfg, dev, small_prompt)
-    print(json.dumps(kernels_line(k1_records, k4_records, serves)),
+    print(json.dumps(kernels_line(k1_records, k4_records, k2_records,
+                                  k3_records, serves, ops_launches)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ame_gemm import ame_gemm
+from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.elementwise import ame_elementwise
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
@@ -22,6 +24,15 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
     if use_kernel and a.is_cuda:
         return ame_gemm(a, b, out_dtype=out_dtype, **blocks)
     return ref.gemm(a, b, out_dtype=out_dtype)
+
+
+def elementwise(kind: str, a: torch.Tensor, b: torch.Tensor, *,
+                relu: bool = False, use_kernel: bool = False) -> torch.Tensor:
+    """Fused mfadd/mfsub/mfmul (+ ReLU) via the kernel or its plain
+    version."""
+    if use_kernel and a.is_cuda:
+        return ame_elementwise(a, b, kind=kind, relu=relu)
+    return ref.elementwise(kind, a, b, relu=relu)
 
 
 def ssd(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
@@ -44,3 +55,14 @@ def ssd4(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
                      c.reshape(bsz * h, t, -1).contiguous(), chunk=chunk)
         return y.reshape(bsz, h, t, p)
     return ref.ssd_chunked4(x, log_a, b, c, chunk=chunk)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              use_kernel: bool = False, **blocks):
+    """Attention over q (BH,Tq,D), k/v (BH,Tk,D), queries end-aligned, via
+    the online-softmax kernel or its plain version; ``blocks`` are the
+    kernel's ``block_q``/``block_k``."""
+    if use_kernel and q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               **blocks)
+    return ref.attention(q, k, v, causal=causal, window=window)

@@ -12,6 +12,9 @@ import torch.nn.functional as F
 
 #: mask value selected before ``exp`` (exp(NEG) == 0, never inf * 0)
 NEG = -1e30
+#: ``attention`` walks its leading dims in slices of at most this many
+#: (query, key) scores
+SCORES_PER_SLICE = 2 ** 26
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor,
@@ -20,6 +23,24 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     (default ``a.dtype``) — the ``ame_gemm`` oracle."""
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def elementwise(kind: str, a: torch.Tensor, b: torch.Tensor,
+                relu: bool = False) -> torch.Tensor:
+    """mfadd/mfsub/mfmul semantics with an optional ReLU on writeback —
+    the ``ame_elementwise`` oracle.  Done in the operands' dtype, as
+    PyTorch does it: widened to f32, one operation, one rounding.  The
+    ReLU is the reference's ``jnp.maximum(o, 0)``: NaN stays NaN and -0
+    becomes +0 (``torch.relu`` keeps -0 on the CPU, not on the card)."""
+    if kind == "add":
+        o = a + b
+    elif kind == "sub":
+        o = a - b
+    elif kind == "mul":
+        o = a * b
+    else:
+        raise ValueError(kind)
+    return o.masked_fill(o <= 0, 0) if relu else o
 
 
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
@@ -94,3 +115,40 @@ def ssd_chunked4(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_chunked4 takes x (B,H,T,P), got "
                          f"{tuple(x.shape)}")
     return _ssd_chunked(x, log_a, b, c, chunk)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Naive softmax attention — the ``flash_attention`` oracle.  q
+    (..., Tq, D), k/v (..., Tk, D) with the same leading dims; Tq is
+    aligned to the *end* of the kv sequence (decode: Tq = 1, Tk = cache
+    length).  ``window > 0`` is sliding-window attention (each query sees
+    the last ``window`` keys).  Masked scores are -inf and the softmax is
+    f32, so a row that sees no key is NaN; the result takes q's dtype.
+
+    The leading dims are walked in slices of at most
+    :data:`SCORES_PER_SLICE` scores each, so the (Tq, Tk) score blocks of a
+    long sequence are never all resident.
+    """
+    *lead, tq, d = q.shape
+    tk = k.shape[-2]
+    scale = scale if scale is not None else d ** -0.5
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    qf = q.reshape(-1, tq, d)
+    kf, vf = k.reshape(-1, tk, d), v.reshape(-1, tk, v.shape[-1])
+    rows = max(1, SCORES_PER_SLICE // max(1, tq * tk))
+    outs = []
+    for i in range(0, qf.shape[0], rows):
+        s = (qf[i:i + rows].float() @ kf[i:i + rows].float().transpose(-1, -2)
+             ) * scale
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        outs.append((p @ vf[i:i + rows].float()).to(q.dtype))
+    out = torch.cat(outs) if outs else qf.new_empty(0, tq, v.shape[-1])
+    return out.reshape(*lead, tq, v.shape[-1])

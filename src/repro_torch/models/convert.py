@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 
 
@@ -41,7 +42,7 @@ def params_from_jax(np_tree: Dict, cfg: ArchConfig, device=None) -> Dict:
     """The reference's parameter pytree (numpy leaves) as the port's
     parameters on ``device``; raises on any missing, extra or misshapen
     leaf."""
-    device = lm.resolve_device(device)
+    device = resolve_device(device)
     want = dict(leaves(lm.init(cfg, device="meta")))
     got = dict(leaves(np_tree))
     if set(want) != set(got):

@@ -17,24 +17,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, as_backend, dense_init, embed, embed_init,
     norm_init,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` (the current CUDA device) by default; raises if a CUDA
-    device is asked for and there is none (no silent CPU fallback)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _family_fns(cfg: ArchConfig):

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 from repro_torch.models.layers import as_backend
 from repro_torch.obs.metrics import Histogram
@@ -72,7 +73,7 @@ class Server:
                 "faults= waits for the obs/faults slice (ROADMAP.md, "
                 "queue 1, item 4)")
         self.cfg = cfg
-        self.device = lm.resolve_device(device)
+        self.device = resolve_device(device)
         for leaf in (params["embed"]["table"], params["final_norm"]["scale"]):
             if leaf.device != self.device:
                 raise ValueError(f"parameters live on {leaf.device}, the "

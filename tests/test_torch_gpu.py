@@ -1,5 +1,6 @@
-"""K1 (ame_gemm) and K4 (ssd_scan) on the card: built from csrc/, held
-against their plain versions, launches counted.  Marked ``gpu``: every test skips with a reason
+"""K1 (ame_gemm), K2 (ame_elementwise), K3 (flash_attention) and K4
+(ssd_scan) on the card: built from csrc/, held against their plain
+versions, launches counted.  Marked ``gpu``: every test skips with a reason
 where there is no CUDA device (decided inside the fixture, never while the
 module is imported).  On the card: ``python -m pytest -m gpu tests``.
 """
@@ -7,6 +8,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ame_gemm as k1
+from repro_torch.kernels import attention as k3
+from repro_torch.kernels import elementwise as k2
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as k4
 from repro_torch.launch import hw
@@ -188,3 +191,221 @@ def test_ssd_smem_claim_matches_the_source_and_fits(cuda):
     for l, n in ((128, 128), (64, 128), (16, 4), (100, 24)):
         assert lib.ssd_scan_smem_bytes(l, n) == k4.smem_bytes(l, n)
     assert k4.smem_bytes(128, 128) < hw.SMEM_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# K2 ame_elementwise: bit for bit against torch's own +, -, * (and relu)
+# ---------------------------------------------------------------------------
+
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+        torch.float16: torch.int16}
+EW_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def assert_same_bits(got, want):
+    """Equal shape, dtype and bits; NaN where the other is NaN (a NaN's
+    payload is the hardware's, not the function's)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(BITS[got.dtype]),
+                       want[~nan].view(BITS[want.dtype]))
+
+
+def _ew_pair(m, c, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(m, c, generator=g, device=device).to(dtype),
+            torch.randn(m, c, generator=g, device=device).to(dtype))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", EW_DTYPES, ids=str)
+@pytest.mark.parametrize("kind", ["add", "sub", "mul"])
+@pytest.mark.parametrize("m,c", [(128, 2048), (57, 129), (1, 8), (128, 4096),
+                                 (3, 5)])
+def test_elementwise_kernel_bit_exact(cuda, m, c, kind, dtype, relu):
+    a, b = _ew_pair(m, c, dtype, cuda)
+    got = k2.ame_elementwise(a, b, kind=kind, relu=relu)
+    torch.cuda.synchronize()
+    assert_same_bits(got, ref.elementwise(kind, a, b, relu=relu))
+
+
+@pytest.mark.parametrize("dtype", EW_DTYPES, ids=str)
+@pytest.mark.parametrize("kind", ["add", "sub", "mul"])
+def test_elementwise_kernel_specials(cuda, kind, dtype):
+    """NaN passes ReLU, -0 stays -0, infinities and f32 denormals are kept
+    (no fast math), on the vector path and the scalar tail."""
+    a, b = _ew_pair(4, 37, dtype, cuda)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                            1e-40, -1e-40, 6e-8, -3e-39], device=cuda)
+    a[0, :8] = special.to(dtype)
+    a[3, -8:] = special.to(dtype)
+    b[1, :8] = special.to(dtype)
+    for relu in (False, True):
+        got = k2.ame_elementwise(a, b, kind=kind, relu=relu)
+        want = ref.elementwise(kind, a, b, relu=relu)
+        assert_same_bits(got, want)
+    assert torch.isnan(k2.ame_elementwise(a, b, kind=kind, relu=True)[0, 0])
+
+
+@pytest.mark.parametrize("dtype", EW_DTYPES, ids=str)
+def test_elementwise_kernel_misaligned_view(cuda, dtype):
+    """A view that starts one element into its storage is contiguous but
+    not 16-byte aligned: the kernel takes its scalar pass."""
+    m, c = 33, 64
+    base = torch.randn(m * c + 1, device=cuda).to(dtype)
+    a = base[1:].view(m, c)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    b = _ew_pair(m, c, dtype, cuda)[1]
+    for kind in ("add", "sub", "mul"):
+        assert_same_bits(k2.ame_elementwise(a, b, kind=kind, relu=True),
+                         ref.elementwise(kind, a, b, relu=True))
+        assert_same_bits(k2.ame_elementwise(b, a, kind=kind),
+                         ref.elementwise(kind, b, a))
+
+
+def test_elementwise_launch_counter_counts_kernel_launches_only(cuda):
+    a, b = _ew_pair(4, 64, torch.float16, cuda)
+    before = k2.launches
+    ops.elementwise("mul", a, b, use_kernel=True)
+    ops.elementwise("mul", a, b, use_kernel=False)
+    ops.elementwise("mul", a.cpu(), b.cpu(), use_kernel=True)
+    assert k2.launches == before + 1
+    # vectors and a scalar tail are one launch
+    ops.elementwise("add", *_ew_pair(57, 129, torch.float16, cuda),
+                    use_kernel=True)
+    assert k2.launches == before + 2
+
+
+def test_elementwise_kernel_rejects_what_it_does_not_take(cuda):
+    a, b = _ew_pair(8, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.ame_elementwise(a.t(), b.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.ame_elementwise(a, b.cpu())
+    with pytest.raises(TypeError):
+        k2.ame_elementwise(a, b.half())
+    with pytest.raises(ValueError, match="kind"):
+        k2.ame_elementwise(a, b, kind="max")
+
+
+# ---------------------------------------------------------------------------
+# K3 flash_attention
+# ---------------------------------------------------------------------------
+
+#: the reference's values (tests/test_kernels.py:20-22)
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=0.06, rtol=0.06)}
+#: the reference's test shapes (tests/test_kernels.py:124-131)
+ATTN_CASES = [(2, 64, 64, 32, True, 0), (1, 128, 128, 64, True, 0),
+              (1, 100, 100, 32, True, 0), (2, 64, 64, 32, False, 0),
+              (1, 128, 128, 32, True, 48), (1, 16, 128, 32, True, 0)]
+
+
+#: bf16 at the model shapes: one bf16 ulp (2^-7 |x|) plus a floor; the
+#: kernel and the plain version both compute in f32 and round once
+MODEL_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=2e-3, rtol=8e-3)}
+
+
+def _qkv(bh, tq, tk, d, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(bh, t, d, generator=g, device=device) * 0.5)
+            .to(dtype) for t in (tq, tk, tk)]
+
+
+def _peaked_qkv(bh, tq, tk, d, dtype, device, seed=0):
+    """q, k at scale 3^0.5 (scores of std 3, a peaked softmax) and unit v:
+    outputs are O(1), so a dropped or mis-masked KV tile fails
+    MODEL_TOL."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(bh, t, d, generator=g, device=device) * s)
+            .to(dtype) for t, s in ((tq, 3 ** 0.5), (tk, 3 ** 0.5), (tk, 1))]
+
+
+@pytest.mark.parametrize("blocks", k3.BLOCKS,
+                         ids=lambda b: "x".join(map(str, b)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("bh,tq,tk,d,causal,window", ATTN_CASES)
+def test_attention_kernel_matches_plain(cuda, bh, tq, tk, d, causal, window,
+                                        dtype, blocks):
+    q, k, v = _qkv(bh, tq, tk, d, dtype, cuda)
+    bq, bk = blocks
+    got = k3.flash_attention(q, k, v, causal=causal, window=window,
+                             block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), ref.attention(q, k, v, causal=causal,
+                                   window=window).float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("bh,tq,tk,d,causal,window", [
+    (4, 256, 256, 128, True, 0),       # qwen3 / Mixtral head dim
+    (8, 16, 1024, 128, True, 0),       # chunked decode
+    (2, 512, 512, 128, True, 200),     # sliding window across tiles
+    (2, 300, 300, 256, True, 0),       # gemma-2b head dim
+    (2, 97, 97, 80, True, 0),          # hubert / zamba2 head dim
+    (1, 64, 64, 192, False, 0),        # the MLA query width
+    (2, 40, 24, 64, False, 0),         # Tq > Tk without a causal mask
+    (1, 1, 333, 128, True, 0),         # one-token decode
+    (2, 130, 130, 7, True, 33),        # an odd head dim and window
+])
+def test_attention_kernel_at_model_shapes(cuda, bh, tq, tk, d, causal,
+                                          window, dtype):
+    draw = _peaked_qkv if dtype == torch.bfloat16 else _qkv
+    q, k, v = draw(bh, tq, tk, d, dtype, cuda, seed=1)
+    got = ops.attention(q, k, v, causal=causal, window=window,
+                        use_kernel=True)
+    torch.testing.assert_close(
+        got.float(), ref.attention(q, k, v, causal=causal,
+                                   window=window).float(), **MODEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,window", [
+    (16, 2048, 2048, 128, 0),          # qwen3-1.7b prefill
+    (64, 16, 1024, 128, 0),            # chunked decode
+    (48, 8192, 8192, 128, 4096),       # Mixtral-8x22B sliding window
+    (8, 2048, 2048, 256, 0),           # gemma-2b
+])
+def test_attention_kernel_at_full_model_size(cuda, bh, tq, tk, d, window):
+    q, k, v = _peaked_qkv(bh, tq, tk, d, torch.bfloat16, cuda, seed=2)
+    got = k3.flash_attention(q, k, v, window=window)
+    want = ref.attention(q, k, v, window=window).float()
+    assert float(want.abs().mean()) > 0.1       # O(1): the limit can fail
+    torch.testing.assert_close(got.float(), want,
+                               **MODEL_TOL[torch.bfloat16])
+
+
+def test_attention_launch_counter_counts_kernel_launches_only(cuda):
+    q, k, v = _qkv(2, 8, 8, 32, torch.float32, cuda)
+    before = k3.launches
+    ops.attention(q, k, v, use_kernel=True)
+    ops.attention(q, k, v, use_kernel=False)
+    ops.attention(q.cpu(), k.cpu(), v.cpu(), use_kernel=True)
+    assert k3.launches == before + 1
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv(2, 16, 16, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="compiled"):
+        k3.flash_attention(q, k, v, block_q=128, block_k=128)
+    with pytest.raises(ValueError, match="see no key"):
+        k3.flash_attention(q, k[:, :8].contiguous(), v[:, :8].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        k3.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        k3.flash_attention(*_qkv(1, 4, 4, 320, torch.float32, cuda))
+
+
+def test_attention_smem_claim_matches_the_source_and_fits(cuda):
+    lib = k3._lib()
+    for bq, bk in k3.BLOCKS:
+        for d in (7, 32, 64, 80, 128, 192, 256):
+            assert lib.flash_attention_smem_bytes(bq, bk, d) == \
+                k3.smem_bytes(bq, bk, d)
+            assert k3.smem_bytes(bq, bk, d) <= hw.SMEM_PER_BLOCK
+    assert lib.flash_attention_smem_bytes(64, 64, 257) == 0

@@ -21,6 +21,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.serve.loop" in mods and len(mods) >= 15
+    assert {"repro_torch.core.engine", "repro_torch.kernels.elementwise",
+            "repro_torch.kernels.attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -44,3 +46,17 @@ def test_sources_hold_no_jax_or_repro_import():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from repro.kernels import ops")
     assert not FORBIDDEN.search("from repro_torch.kernels import ops")
+
+
+def test_core_does_not_import_the_model_stack():
+    """``repro_torch.core``, the AME engine, sits below the models: it
+    resolves its device through ``launch.device``, not ``models``."""
+    code = ("import sys, repro_torch.core\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.startswith(('repro_torch.models', "
+            "'repro_torch.serve')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
