@@ -3,17 +3,25 @@
 
     python3 chip_smoke.py
 
+Times: "events" is the CUDA-event mean of eager calls, which includes the
+host's issue path whenever a call is shorter than its launch; "device" is
+the same calls captured in a CUDA graph and replayed (:func:`device_ms`),
+the card's time alone; "host" is the wall time of issuing one call.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. device  — require CUDA; print the card's name and power limit; TF32 off.
 2. build   — build every kernel under src/repro_torch/kernels/csrc with
              nvcc (one process per source, all at once); print the build
-             seconds and the ptxas register / shared-memory lines.
+             seconds and each instantiation's registers and spills.
 3. kernels — hold K1 (ame_gemm) against its plain version at the main
-             paths' shapes (qwen3-1.7b and mamba2-370m projections) and the
-             ragged test shapes; time the kernel, the plain version and
+             paths' shapes (qwen3-1.7b and mamba2-370m projections at
+             m = 1, 4, 64 and mamba's 300) and the ragged test shapes;
+             every main-path shape must take the tensor-core variant, and
+             each line names the variant it took; time the kernel and
              torch.matmul (the library yardstick, which the port never
-             calls) with CUDA events beside the bound.
+             calls) on the device and with events, the plain version with
+             events, and the host time of a call, beside the bound.
 4. ssd     — hold K4 (ssd_scan) against its plain version at the reference
              test shapes (f32, bf16), the impulse test and the main path's
              shapes (BH 32, P 64, N 128, chunk 128, f32 x, bf16 b/c) at
@@ -24,12 +32,15 @@ Phases (any failure exits non-zero and prints no result line):
              without ReLU, NaN / inf / -0 / denormal inputs, a misaligned
              view; time it at the AME max tile (128, 4096) f16 and at
              (8192, 8192) bf16 beside torch.add/sub/mul and the bytes bound.
-6. attention — hold K3 (flash_attention) against its plain version within
-             the reference's tolerances: its six test shapes in f32 and
-             bf16, its block sweep, and four model shapes in bf16 (qwen3
-             prefill, chunked decode, a Mixtral sliding window, gemma-2b's
-             head dim 256); time them beside scaled_dot_product_attention
-             and the bound.
+6. attention — hold K3 (flash_attention) against its plain version: its
+             six test shapes in f32 and bf16 within the reference's
+             tolerances; a block sweep over both kernels' blocks (bf16 at
+             head dims 32 and 256), a window across tiles in f32 and bf16,
+             and four model shapes in bf16 (qwen3 prefill, chunked decode,
+             a Mixtral sliding window, gemma-2b's head dim 256), f32 at the
+             reference's 2e-5 and bf16 on peaked inputs at one bf16 ulp;
+             time the model shapes, on the device and with events, beside
+             scaled_dot_product_attention and the bound.
 7. engine  — quickstart part 1 through repro_torch.core on the card: mfadd,
              mfsub, mfmax refused, mfmacc, the modeled Aquabolt-XL headline
              (59.4 FLOP/cycle, 14.9 GFLOP/s, 256 launches); the batched
@@ -60,7 +71,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 #: K1's tolerance against its plain version, per output dtype: the same
 #: values as tests/test_kernels.py (f32 runs FP32 FMA, never TF32, so only
@@ -138,6 +148,53 @@ def timed_ms(fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, args_list, iters: int, replays: int = 3) -> float:
+    """Mean device ms per call: ``iters`` calls, cycling through
+    ``args_list`` as :func:`timed_ms` does, captured in one CUDA graph and
+    replayed between two CUDA events.  A replay launches the captured
+    kernels back to back, so the host's issue path (Python, ctypes, the
+    wrapper's checks) is not in the time, as it is in :func:`timed_ms`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm up off the capture
+        for args in args_list[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def host_us(fn, args_list, iters: int) -> float:
+    """Host µs per call: the wall time of ``iters`` calls issued back to
+    back, without waiting for the card (the launch queue never fills at
+    these counts)."""
+    import torch
+    for args in args_list[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -183,13 +240,18 @@ def k1_layer(cfg):
             ("wi", d, cfg.d_ff), ("wg", d, cfg.d_ff), ("mlp.wo", cfg.d_ff, d)]
 
 
-def k1_shapes(cfg, m_values=(1, 4, 64)):
-    """(name, m, k, n) of one layer's K1 calls, per M."""
+def k1_shapes(cfg):
+    """(name, m, k, n) of one layer's K1 calls, per M: one token (m = 1),
+    a decode step of SLOTS slots, a prompt of 64 tokens, and for mamba the
+    LONG_PROMPT-token prefill."""
+    m_values = (1, SLOTS, 64) + ((LONG_PROMPT,) if cfg.family == "ssm"
+                                 else ())
     return [(nm, m, k, n) for m in m_values for nm, k, n in k1_layer(cfg)]
 
 
 def phase_kernels(cfgs):
-    """K1 against its plain version; returns per-shape records."""
+    """K1 against its plain version; returns per-shape records.  Each main-
+    path shape must take the tensor-core variant."""
     import torch
     from repro_torch.kernels import ame_gemm as k1
     from repro_torch.kernels import ref
@@ -221,6 +283,9 @@ def phase_kernels(cfgs):
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        var = k1.variant(a, b)
+        if model != "test" and var != "mma":
+            ok = False                  # a main-path shape must take mma
         iters = 20
         ms = timed_ms(k1.ame_gemm, args, iters)
         plain_ms = timed_ms(ref.gemm, args, iters)
@@ -229,20 +294,45 @@ def phase_kernels(cfgs):
         peak = hw.PEAK_FLOPS if dt == torch.bfloat16 else hw.PEAK_FLOPS_F32
         t_bytes, t_ops = nbytes / hw.HBM_BW, 2 * m * n * k / peak
         rec = dict(model=model, name=nm, m=m, k=k, n=n,
-                   dtype=str(dt).removeprefix("torch."),
+                   dtype=str(dt).removeprefix("torch."), variant=var,
                    max_abs_err=err, atol=atol, rtol=rtol, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
+                   device_ms=device_ms(k1.ame_gemm, args, iters),
+                   library_device_ms=device_ms(torch.matmul, args, iters),
+                   host_us=host_us(k1.ame_gemm, args, 200),
+                   library_host_us=host_us(torch.matmul, args, 200),
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         records.append(rec)
         log(f"[kernels] ame_gemm {model} {nm:8s} (m,k,n)=({m},{k},{n}) "
-            f"{rec['dtype']}: max_abs_err={err:.3g} (atol {atol}, rtol "
-            f"{rtol}) {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+            f"{rec['dtype']} {var}: max_abs_err={err:.3g} (atol {atol}, "
+            f"rtol {rtol}) {'ok' if ok else 'FAIL'} | device: kernel "
+            f"{rec['device_ms']:.4f} ms, torch.matmul "
+            f"{rec['library_device_ms']:.4f} ms | events: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms | "
+            f"host: kernel {rec['host_us']:.1f} us, torch.matmul "
+            f"{rec['library_host_us']:.1f} us | bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    for cfg in cfgs:
+        for m in sorted({r["m"] for r in records if r["model"] == cfg.name}):
+            layer = [r for r in records
+                     if r["model"] == cfg.name and r["m"] == m]
+            tot = {key: sum(r[key] for r in layer)
+                   for key in ("device_ms", "library_device_ms", "ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "host_us", "library_host_us")}
+            log(f"[kernels] ame_gemm {cfg.name} layer ({len(layer)} calls) "
+                f"m={m}: device kernel {tot['device_ms']:.4f} ms, "
+                f"torch.matmul {tot['library_device_ms']:.4f} ms | events "
+                f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms,"
+                f" torch.matmul {tot['library_ms']:.4f} ms | host kernel "
+                f"{tot['host_us']:.1f} us, torch.matmul "
+                f"{tot['library_host_us']:.1f} us | bound "
+                f"{tot['bound_ms']:.4f} ms")
     bad = [r for r in records if not r["ok"]]
     if bad:
-        raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+        raise AssertionError(f"K1 disagrees with its plain version or a "
+                             f"main-path shape missed the mma variant: {bad}")
     return records
 
 
@@ -319,6 +409,8 @@ def phase_ssd(cfg):
         iters = 10 if t >= 1024 else 20
         ms = timed_ms(lambda *a: k4.ssd_scan(*a, chunk=chunk),
                       [(x, la, b, c)], iters)
+        dev_ms = device_ms(lambda *a: k4.ssd_scan(*a, chunk=chunk),
+                           [(x, la, b, c)], iters) if kind == "main" else None
         plain_ms = timed_ms(lambda *a: ref.ssd_chunked(*a, chunk=chunk),
                             [(x, la, b, c)], iters)
         bound_ms, bound_by = k4_bound(rows, t, p, n, chunk,
@@ -327,12 +419,14 @@ def phase_ssd(cfg):
                    x_dtype=str(xdt).removeprefix("torch."),
                    bc_dtype=str(bdt).removeprefix("torch."),
                    max_abs_err=err, atol=atol, rtol=rtol, ok=ok, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         records.append(rec)
         log(f"[ssd] ssd_scan {kind:7s} (bh,t,p,n,chunk)={(rows, t, p, n, chunk)} "
             f"x {rec['x_dtype']} b/c {rec['bc_dtype']}: max_abs_err={err:.3g} "
             f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'} | kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"{ms:.4f} ms" + (f" (device {dev_ms:.4f} ms)" if dev_ms else "")
+            + f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})")
     bad = [r for r in records if not r["ok"]]
     if bad:
@@ -418,11 +512,16 @@ def phase_elementwise(dev):
                 plain_ms=timed_ms(lambda x, y: ref.elementwise(kind, x, y),
                                   args, 20),
                 library_ms=timed_ms(lib[kind], args, 20),
+                device_ms=device_ms(
+                    lambda x, y: k2.ame_elementwise(x, y, kind=kind), args, 20),
+                library_device_ms=device_ms(lib[kind], args, 20),
                 bound_ms=1e3 * nbytes / hw.HBM_BW, bound_by="bytes")
             log(f"[elementwise] ame_elementwise {kind} {(m, c)} {dt_name}: "
-                f"bit-exact {same} | kernel {rec['ms']:.4f} ms, plain "
+                f"bit-exact {same} | device: kernel {rec['device_ms']:.4f} "
+                f"ms, torch.{kind} {rec['library_device_ms']:.4f} ms | "
+                f"events: kernel {rec['ms']:.4f} ms, plain "
                 f"{rec['plain_ms']:.4f} ms, torch.{kind} "
-                f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"{rec['library_ms']:.4f} ms | bound {rec['bound_ms']:.4f} ms "
                 f"(bytes)")
         records.append(rec)
         if not same:
@@ -492,7 +591,10 @@ def _model_qkv(bh, tq, tk, d, gen, dev):
 
 
 def phase_attention(dev):
-    """K3 against its plain version; returns records."""
+    """K3 against its plain version; returns records.  The reference's
+    shapes and every f32 case are held to the reference's tolerances; every
+    other bf16 case (each bf16 block, the window case, the model shapes)
+    runs on the peaked inputs of :func:`_model_qkv` at one bf16 ulp."""
     import torch
     from repro_torch.kernels import attention as k3
     from repro_torch.kernels import ref
@@ -506,15 +608,19 @@ def phase_attention(dev):
              for shape in tests for dt in (f32, bf16)]
     cases += [("sweep", (1, 96, 96, 32), True, 0, f32, blocks)
               for blocks in k3.BLOCKS]
-    # a window wider than block_k over T > 2 block_k: the kernel starts
-    # later query blocks' KV walk past tile 0 (kbeg > 0), checked in f32
-    cases += [("window f32", (2, 512, 512, 128), True, 200, f32, None)]
+    cases += [("sweep", (1, 96, 96, d), True, 0, bf16, blocks)
+              for d in (32, 256) for blocks in k3.MMA_BLOCKS]
+    # a window wider than block_k over T > 2 block_k: the kernel
+    # starts later query blocks' KV walk past tile 0 (kbeg > 0)
+    cases += [("window", (2, 512, 512, 128), True, 200, dt, None)
+              for dt in (f32, bf16)]
     cases += [(name, shape, causal, window, bf16, None)
               for name, shape, causal, window in K3_MODEL_CASES]
     records, bad = [], []
     for what, (bh, tq, tk, d), causal, window, dt, blocks in cases:
-        model = what not in ("test", "sweep", "window f32")
-        if model:
+        model = what not in ("test", "sweep", "window")
+        peaked = dt == bf16 and what != "test"
+        if peaked:
             q, k, v = _model_qkv(bh, tq, tk, d, gen, dev)
         else:
             q, k, v = [(torch.randn(bh, t, d, generator=gen, device=dev)
@@ -526,20 +632,20 @@ def phase_attention(dev):
         torch.cuda.synchronize()
         want = ref.attention(q, k, v, causal=causal, window=window)
         dt_name = str(dt).removeprefix("torch.")
-        atol, rtol = K3_MODEL_TOL if model else K3_TOL[dt_name]
+        atol, rtol = K3_MODEL_TOL if peaked else K3_TOL[dt_name]
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         ok = got.shape == want.shape and got.dtype == want.dtype and bool(
             (diff <= atol + rtol * want.float().abs()).all())
         rec = dict(kind=what, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
                    window=window, dtype=dt_name,
-                   blocks=blocks or k3.default_blocks(d), max_abs_err=err,
+                   blocks=blocks or "default", max_abs_err=err,
                    atol=atol, rtol=rtol, ok=ok)
         line = (f"[attention] flash_attention {what:20s} (bh,tq,tk,d)="
                 f"{(bh, tq, tk, d)} causal={causal} window={window} "
                 f"{dt_name} blocks={rec['blocks']}: max_abs_err={err:.3g} "
                 f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
-        if model:
+        if peaked:
             # the limit must be able to fail a wrong kernel: the plain
             # outputs have to stand well clear of it
             rec["plain_mean_abs"] = float(want.float().abs().mean())
@@ -547,6 +653,7 @@ def phase_attention(dev):
             if rec["plain_mean_abs"] < 10 * (atol + rtol):
                 ok = rec["ok"] = False
                 line += " (too close to the limit to test the kernel)"
+        if model:
             lib = _sdpa(causal, window, tq, tk, dev)
             lib_diff = (lib(q, k, v).float() - want.float()).abs()
             lib_err = float(lib_diff.max())
@@ -558,6 +665,9 @@ def phase_attention(dev):
                 plain_ms=timed_ms(lambda *a: ref.attention(*a, **kw),
                                   [(q, k, v)], iters),
                 library_ms=timed_ms(lib, [(q, k, v)], iters),
+                device_ms=device_ms(lambda *a: k3.flash_attention(*a, **kw),
+                                    [(q, k, v)], iters),
+                library_device_ms=device_ms(lib, [(q, k, v)], iters),
                 library_max_abs_err=lib_err)
             rec["bound_ms"], rec["bound_by"] = k3_bound(
                 bh, tq, tk, d, causal, window, q.element_size())
@@ -568,10 +678,12 @@ def phase_attention(dev):
                          + lib_rtol * want.float().abs()).all()):
                 ok = rec["ok"] = False
                 line += f"; SDPA's mask disagrees ({lib_err:.3g})"
-            line += (f" | kernel {rec['ms']:.4f} ms, plain "
-                     f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f}"
-                     f" ms (max_abs_err {lib_err:.3g} vs plain), bound "
-                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            line += (f" | device: kernel {rec['device_ms']:.4f} ms, sdpa "
+                     f"{rec['library_device_ms']:.4f} ms | events: kernel "
+                     f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                     f"sdpa {rec['library_ms']:.4f} ms (max_abs_err "
+                     f"{lib_err:.3g} vs plain) | bound {rec['bound_ms']:.4f} "
+                     f"ms ({rec['bound_by']})")
         log(line)
         records.append(rec)
         if not ok:
@@ -902,7 +1014,7 @@ def _log_profile(tag, what, step_ms, host_ms, steps, kernels, n_launch):
             f"measured")
         return
     shares = []
-    for name, key in (("ame_gemm", "ame_gemm_kernel"),
+    for name, key in (("ame_gemm", "ame_gemm"),
                       ("ssd_scan", "ssd_scan_kernel")):
         ms = sum(v for k, v in kernels.items() if key in k)
         if ms:
@@ -994,11 +1106,15 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     summed.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
     of the mamba serve.  K2's: an (8192, 8192) bf16 add.  K3's: one
     qwen3-1.7b layer's causal prefill attention.  ``launches``: each
-    kernel's count on the paths that run it (the serves, the ops path)."""
+    kernel's count on the paths that run it (the serves, the ops path).
+    ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
+    issue included); ``device_ms`` and ``library_device_ms`` the same
+    calls replayed from a CUDA graph (:func:`device_ms`)."""
     layer = [r for r in k1_records
              if r["model"] == "qwen3-1.7b" and r["m"] == SLOTS]
     total = {key: sum(r[key] for r in layer)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "device_ms", "library_device_ms")}
     main = [r for r in k4_records
             if r["kind"] == "main" and r["t"] == LONG_PROMPT][0]
     by_path = {name: {model: s["launches"][name]
@@ -1007,7 +1123,8 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     ew = [r for r in k2_records if r["kind"] == "model"
           and r["shape"] == (8192, 8192) and r["op"] == "add"][0]
     at = [r for r in k3_records if r["kind"] == "qwen3-1.7b prefill"][0]
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "device_ms", "library_device_ms")
     return {"kernels": [{
         "name": "ame_gemm",
         "route": "cuda",
@@ -1022,6 +1139,8 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layer)
         else "operations",
         "library_ms": total["library_ms"],
+        "device_ms": total["device_ms"],
+        "library_device_ms": total["library_device_ms"],
         "work": f"one qwen3-1.7b decoder layer's 7 K1 calls at decode, "
                 f"M={SLOTS}, bf16",
     }, {
@@ -1037,6 +1156,8 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "device_ms": main["device_ms"],
+        "library_device_ms": None,
         "work": f"one mamba2-370m layer's scan of a {LONG_PROMPT}-token "
                 f"prefill: (BH,T,P,N)=({main['bh']},{main['t']},"
                 f"{main['p']},{main['n']}), chunk {main['chunk']}, f32 x, "
@@ -1069,13 +1190,14 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
 
 def main() -> int:
     name, _ = phase_device()
+    sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs import get
     qwen, mamba = get("qwen3-1.7b"), get("mamba2-370m")
     phase_build()
+    dev = torch.device("cuda", torch.cuda.current_device())
     k1_records = phase_kernels([qwen, mamba])
     k4_records = phase_ssd(mamba)
-    dev = torch.device("cuda", torch.cuda.current_device())
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
     phase_engine(dev)

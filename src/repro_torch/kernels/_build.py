@@ -91,9 +91,24 @@ def build(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)            # atomic: a reader never sees half a file
     ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
-    BUILD_INFO[name] = {"seconds": secs, "ptxas": ptxas}
+             if "Function properties" in ln or "registers" in ln
+             or "spill" in ln]
+    BUILD_INFO[name] = {"seconds": secs, "ptxas": _demangle(ptxas)}
     return lib
+
+
+def _demangle(lines: List[str]) -> List[str]:
+    """``lines`` with each mangled kernel name replaced by the toolkit's
+    ``cu++filt -p`` reading of it (``name<template values>``)."""
+    names = sorted({w for ln in lines for w in ln.split()
+                    if w.startswith("_Z")})
+    if not names:
+        return lines
+    filt = Path(_nvcc()).parent / "cu++filt"
+    out = subprocess.run([str(filt), "-p", *names], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    plain = dict(zip(names, out))
+    return [" ".join(plain.get(w, w) for w in ln.split()) for ln in lines]
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:

@@ -52,12 +52,21 @@ def _pair(m, k, n, dtype, device, seed=0):
     return a.to(dtype), b.to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (4, 2048, 6144),
-                                   (64, 6144, 2048), (100, 130, 70),
-                                   (257, 33, 129), (8, 8, 8)])
-@pytest.mark.parametrize("blocks", k1.BLOCKS, ids=lambda b: "x".join(map(str, b)))
+def _k1_cases():
+    """(m, k, n, dtype, block) for every block of the variant each shape
+    and dtype takes: mma for bf16/f16 with k and n multiples of 8, fma for
+    f32 and the ragged shapes."""
+    for m, k, n in [(1, 2048, 2048), (4, 2048, 6144), (64, 6144, 2048),
+                    (100, 130, 70), (257, 33, 129), (8, 8, 8)]:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            mma = dtype != torch.float32 and k % 8 == 0 and n % 8 == 0
+            for blocks in (k1.MMA_BLOCKS if mma else k1.BLOCKS):
+                yield m, k, n, dtype, blocks
+
+
+@pytest.mark.parametrize("m,k,n,dtype,blocks", list(_k1_cases()),
+                         ids=lambda x: "x".join(map(str, x))
+                         if isinstance(x, tuple) else str(x))
 def test_kernel_matches_plain(cuda, m, k, n, dtype, blocks):
     a, b = _pair(m, k, n, dtype, cuda)
     bm, bn, bk = blocks
@@ -65,6 +74,56 @@ def test_kernel_matches_plain(cuda, m, k, n, dtype, blocks):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.gemm(a, b).float(),
                                **tol(dtype, k))
+
+
+#: (k, n) of every K1 call on the serving paths: qwen3-1.7b's q/o, k/v,
+#: gate/up and down projections, mamba2-370m's in_proj and out_proj
+SERVE_KN = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048),
+            (1024, 4384)]
+
+
+@pytest.mark.parametrize("out", [None, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("k,n", SERVE_KN)
+@pytest.mark.parametrize("m", [1, 4, 16, 64, 300])
+def test_mma_kernel_at_serving_shapes(cuda, m, k, n, dtype, out):
+    """Every serving shape takes the tensor-core variant with the block
+    the wrapper picks, and matches the plain version."""
+    a, b = _pair(m, k, n, dtype, cuda, seed=m)
+    assert k1.variant(a, b) == "mma"
+    before = k1.launches
+    got = k1.ame_gemm(a, b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert got.dtype == (out or dtype) and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), ref.gemm(a, b, out).float(),
+                               **tol(out or dtype, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_unaligned_shapes_take_the_general_kernel(cuda, dtype):
+    """n or k not a multiple of 8, or a view that does not start on 16
+    bytes, cannot be copied in 16-byte pieces: the fma kernel takes them,
+    and is still right."""
+    cases = [_pair(100, 130, 70, dtype, cuda), _pair(257, 33, 129, dtype, cuda)]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = (torch.randn(64 * 128 + 1, generator=g, device=cuda) * 0.3).to(dtype)
+    a = base[1:].view(64, 128)               # contiguous, not 16-byte aligned
+    cases.append((a, _pair(64, 128, 256, dtype, cuda)[1]))
+    for a, b in cases:
+        assert k1.variant(a, b) == "fma"
+        got = k1.ame_gemm(a, b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.gemm(a, b).float(),
+                                   **TOL[dtype])
+
+
+def test_mma_smem_claim_matches_the_source_and_fits(cuda):
+    fn = k1._fn("ame_gemm_mma_smem_bytes")
+    for blocks in k1.MMA_BLOCKS:
+        assert fn(*blocks) == k1.smem_bytes(*blocks, kind="mma")
+        assert fn(*blocks) <= hw.SMEM_PER_BLOCK
+    assert fn(64, 64, 32) == 0
 
 
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16, torch.float16])
@@ -293,17 +352,16 @@ def test_elementwise_kernel_rejects_what_it_does_not_take(cuda):
 # K3 flash_attention
 # ---------------------------------------------------------------------------
 
-#: the reference's values (tests/test_kernels.py:20-22)
-ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
-            torch.bfloat16: dict(atol=0.06, rtol=0.06)}
 #: the reference's test shapes (tests/test_kernels.py:124-131)
 ATTN_CASES = [(2, 64, 64, 32, True, 0), (1, 128, 128, 64, True, 0),
               (1, 100, 100, 32, True, 0), (2, 64, 64, 32, False, 0),
               (1, 128, 128, 32, True, 48), (1, 16, 128, 32, True, 0)]
 
 
-#: bf16 at the model shapes: one bf16 ulp (2^-7 |x|) plus a floor; the
-#: kernel and the plain version both compute in f32 and round once
+#: f32: the reference's value (tests/test_kernels.py:20-22); bf16, on the
+#: peaked inputs of _peaked_qkv: one bf16 ulp (2^-7 |x|) plus a floor, far
+#: under the reference's 0.06 — the kernel and the plain version both
+#: compute in f32 and round once
 MODEL_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
              torch.bfloat16: dict(atol=2e-3, rtol=8e-3)}
 
@@ -323,13 +381,14 @@ def _peaked_qkv(bh, tq, tk, d, dtype, device, seed=0):
             .to(dtype) for t, s in ((tq, 3 ** 0.5), (tk, 3 ** 0.5), (tk, 1))]
 
 
-@pytest.mark.parametrize("blocks", k3.BLOCKS,
-                         ids=lambda b: "x".join(map(str, b)))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype,blocks", [
+    (dtype, blocks) for dtype in (torch.float32, torch.bfloat16)
+    for blocks in k3.blocks_for(dtype)], ids=str)
 @pytest.mark.parametrize("bh,tq,tk,d,causal,window", ATTN_CASES)
 def test_attention_kernel_matches_plain(cuda, bh, tq, tk, d, causal, window,
                                         dtype, blocks):
-    q, k, v = _qkv(bh, tq, tk, d, dtype, cuda)
+    draw = _peaked_qkv if dtype == torch.bfloat16 else _qkv
+    q, k, v = draw(bh, tq, tk, d, dtype, cuda)
     bq, bk = blocks
     got = k3.flash_attention(q, k, v, causal=causal, window=window,
                              block_q=bq, block_k=bk)
@@ -337,10 +396,12 @@ def test_attention_kernel_matches_plain(cuda, bh, tq, tk, d, causal, window,
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(
         got.float(), ref.attention(q, k, v, causal=causal,
-                                   window=window).float(), **ATTN_TOL[dtype])
+                                   window=window).float(), **MODEL_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dtype,blocks", [(torch.float32, {})] + [
+    (torch.bfloat16, dict(block_q=bq, block_k=bk)) for bq, bk in
+    k3.MMA_BLOCKS], ids=str)
 @pytest.mark.parametrize("bh,tq,tk,d,causal,window", [
     (4, 256, 256, 128, True, 0),       # qwen3 / Mixtral head dim
     (8, 16, 1024, 128, True, 0),       # chunked decode
@@ -351,13 +412,21 @@ def test_attention_kernel_matches_plain(cuda, bh, tq, tk, d, causal, window,
     (2, 40, 24, 64, False, 0),         # Tq > Tk without a causal mask
     (1, 1, 333, 128, True, 0),         # one-token decode
     (2, 130, 130, 7, True, 33),        # an odd head dim and window
+    (2, 256, 256, 64, True, 0),        # head dim 64, causal
+    (2, 200, 200, 64, False, 0),       # head dim 64, no mask
+    (4, 1, 1024, 128, True, 0),        # one query against Tk = 1024
+    (4, 16, 1024, 64, True, 0),        # the short-query block at D = 64
+    (4, 16, 1024, 256, True, 0),       # the short-query block at D = 256
+    (2, 100, 1000, 128, True, 0),      # KV padding: Tk % block_k != 0
+    (2, 77, 333, 256, False, 0),       # KV padding at D = 256
+    (2, 300, 700, 128, True, 150),     # a window across tiles, Tq < Tk
 ])
 def test_attention_kernel_at_model_shapes(cuda, bh, tq, tk, d, causal,
-                                          window, dtype):
+                                          window, dtype, blocks):
     draw = _peaked_qkv if dtype == torch.bfloat16 else _qkv
     q, k, v = draw(bh, tq, tk, d, dtype, cuda, seed=1)
     got = ops.attention(q, k, v, causal=causal, window=window,
-                        use_kernel=True)
+                        use_kernel=True, **blocks)
     torch.testing.assert_close(
         got.float(), ref.attention(q, k, v, causal=causal,
                                    window=window).float(), **MODEL_TOL[dtype])
@@ -403,9 +472,11 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
 
 def test_attention_smem_claim_matches_the_source_and_fits(cuda):
     lib = k3._lib()
-    for bq, bk in k3.BLOCKS:
-        for d in (7, 32, 64, 80, 128, 192, 256):
-            assert lib.flash_attention_smem_bytes(bq, bk, d) == \
-                k3.smem_bytes(bq, bk, d)
-            assert k3.smem_bytes(bq, bk, d) <= hw.SMEM_PER_BLOCK
-    assert lib.flash_attention_smem_bytes(64, 64, 257) == 0
+    for dtype, code in k3.DTYPE_CODES.items():
+        for bq, bk in k3.blocks_for(dtype):
+            for d in (7, 32, 64, 80, 128, 192, 256):
+                assert lib.flash_attention_smem_bytes(bq, bk, d, code) == \
+                    k3.smem_bytes(bq, bk, d, dtype)
+                assert k3.smem_bytes(bq, bk, d, dtype) <= hw.SMEM_PER_BLOCK
+    assert lib.flash_attention_smem_bytes(64, 64, 257, 0) == 0
+    assert lib.flash_attention_smem_bytes(16, 16, 64, 1) == 0

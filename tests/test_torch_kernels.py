@@ -75,11 +75,71 @@ def test_gemm_out_dtype(out):
 def test_smem_claim_fits_a_block():
     # the TPU defaults (128, 128, 512) double-buffered would not fit
     assert k1.smem_bytes(128, 128, 512) * 2 > hw.SMEM_PER_BLOCK
-    for dtype_bytes in (2, 4):
+    for dtype_bytes in (2, 4):          # the fma kernel's static tiles
         assert k1.smem_bytes(dtype_bytes=dtype_bytes) < hw.SMEM_PER_BLOCK
         for bm, bn, bk in k1.BLOCKS:
             assert k1.smem_bytes(bm, bn, bk, dtype_bytes) <= 48 * 1024
+    for blocks in k1.MMA_BLOCKS:        # the mma kernel's dynamic ring
+        assert k1.MMA_CONFIG[blocks][0] >= 3        # a ring of 3+ stages
+        assert k1.smem_bytes(*blocks, kind="mma") <= hw.SMEM_PER_BLOCK
     assert (k1.DEFAULT_BM, k1.DEFAULT_BN, k1.DEFAULT_BK) in k1.BLOCKS
+
+
+#: (m, k, n) of every K1 call on the serving paths: qwen3-1.7b's seven
+#: projections and mamba2-370m's two, at one token, a decode step of 4
+#: slots, a 64-token prompt and mamba's 300-token prompt
+SERVE_SHAPES = [(m, k, n) for m in (1, 4, 64, 300)
+                for k, n in ((2048, 2048), (2048, 1024), (2048, 6144),
+                             (6144, 2048), (1024, 4384))]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m,k,n", SERVE_SHAPES)
+def test_serving_shapes_take_the_mma_kernel(m, k, n, dtype):
+    a = torch.zeros(m, k, dtype=TDT[dtype])
+    b = torch.zeros(k, n, dtype=TDT[dtype])
+    assert k1.variant(a, b) == "mma"
+    blocks = k1.default_blocks(m, n)
+    assert blocks in k1.MMA_BLOCKS
+    assert k1.smem_bytes(*blocks, kind="mma") <= hw.SMEM_PER_BLOCK
+    tiles = -(-m // blocks[0]) * -(-n // blocks[1])
+    narrowest = min(bn for bm, bn, _ in k1.MMA_BLOCKS if bm == blocks[0])
+    assert tiles >= k1.MIN_TILES or blocks[1] == narrowest
+
+
+def test_f32_and_unaligned_operands_take_the_general_kernel():
+    bf = torch.bfloat16
+    cases = [(torch.zeros(4, 64), torch.zeros(64, 32)),             # f32
+             (torch.zeros(100, 130, dtype=bf), torch.zeros(130, 70, dtype=bf)),
+             (torch.zeros(257, 33, dtype=bf), torch.zeros(33, 129, dtype=bf)),
+             (torch.zeros(64 * 128 + 1, dtype=bf)[1:].view(64, 128),
+              torch.zeros(128, 256, dtype=bf))]                    # misaligned
+    for a, b in cases:
+        assert k1.variant(a, b) == "fma"
+        assert k1.default_blocks(a.shape[0], b.shape[1], "fma") in k1.BLOCKS
+
+
+def test_wrapper_refuses_before_it_loads(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a refused call loaded kernel {name!r}")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    a, b = torch.zeros(4, 64, dtype=torch.bfloat16), \
+        torch.zeros(64, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(m,k\) @ \(k,n\)"):
+        k1.ame_gemm(a, b.t())
+    with pytest.raises(TypeError):
+        k1.ame_gemm(a, b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.ame_gemm(a, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="compiled in for the mma"):
+        k1.ame_gemm(a, b, block_m=64, block_n=64, block_k=32)
+    with pytest.raises(ValueError, match="compiled in for the mma"):
+        k1.ame_gemm(a, b, block_m=16)
+    with pytest.raises(ValueError, match="compiled in for the fma"):
+        k1.ame_gemm(a.float(), b.float(), block_m=16, block_n=8, block_k=256)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.ame_gemm(a, b)
 
 
 def test_cpu_tensor_never_touches_the_kernel_loader(monkeypatch):

@@ -247,12 +247,44 @@ def test_attention_smem_claim_fits_a_block():
     # the TPU defaults (128, 128) in f32 at D = 128 would not fit
     assert 4 * 3 * 128 * 128 + 4 * 128 * 128 > hw.SMEM_PER_BLOCK
     for d in (7, 32, 64, 80, 128, 192, 256):
-        assert k3.default_blocks(d) in k3.BLOCKS
-        for bq, bk in k3.BLOCKS:
-            assert k3.smem_bytes(bq, bk, d) <= hw.SMEM_PER_BLOCK
+        for dtype in (torch.float32, torch.bfloat16):
+            for tq in (1, 16, 17, 2048):
+                assert k3.default_blocks(d, dtype, tq) in k3.blocks_for(dtype)
+            for bq, bk in k3.blocks_for(dtype):
+                assert k3.smem_bytes(bq, bk, d, dtype) <= hw.SMEM_PER_BLOCK
+    # f32: Q, K, V staged in f32 at DP + 1, the score block, 3 statistics
     assert k3.smem_bytes(64, 64, 256) == 4 * (64 * 257 * 3 + 64 * 65 + 192)
+    # bf16: Q and two buffers each of K and V in bf16 at DP + 8
+    assert k3.smem_bytes(64, 64, 128, torch.bfloat16) == 2 * (64 + 256) * 136
+    assert k3.smem_bytes(64, 32, 256, torch.bfloat16) == 2 * (64 + 128) * 264
     assert [k3.padded_dim(d) for d in (1, 32, 33, 80, 81, 192, 256)] == \
         [64, 64, 64, 128, 128, 256, 256]
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((16, 2048, 2048, 128), (64, 64)),      # qwen3-1.7b prefill
+    ((64, 16, 1024, 128), (16, 64)),        # chunked decode: one warp
+    ((4, 1, 1024, 128), (16, 64)),          # one-token decode
+    ((48, 8192, 8192, 128), (64, 64)),      # Mixtral window
+    ((8, 2048, 2048, 256), (64, 32)),       # gemma-2b head dim 256
+    ((4, 16, 1024, 256), (16, 32)),
+    ((2, 17, 17, 64), (64, 64)),
+])
+def test_attention_picks_the_bf16_block_from_tq_and_d(shape, blocks):
+    bh, tq, tk, d = shape
+    assert k3.default_blocks(d, torch.bfloat16, tq) == blocks
+    assert blocks in k3.MMA_BLOCKS
+    assert k3.default_blocks(d, torch.float32, tq) == \
+        ((64, 64) if d <= 128 else (64, 32))
+
+
+def test_attention_refuses_a_block_of_the_other_dtype(no_kernel):
+    q = torch.randn(2, 8, 32)
+    with pytest.raises(ValueError, match="compiled in for torch.bfloat16"):
+        k3.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                           block_q=32, block_k=32)
+    with pytest.raises(ValueError, match="compiled in for torch.float32"):
+        k3.flash_attention(q, q, q, block_q=16, block_k=64)
 
 
 def test_ops_on_cpu_never_count_a_launch(no_kernel):
