@@ -26,12 +26,15 @@ Phases (any failure exits non-zero and prints no result line):
              test shapes (f32, bf16), the impulse test and the main path's
              shapes (BH 32, P 64, N 128, chunk 128, f32 x, bf16 b/c) at
              T = 37, 64, 300 (two chunk boundaries, padded third chunk) and
-             2048; time kernel and plain version beside the bound.
+             2048; each line names the variant (and mma configuration) it
+             took, and every main-path shape must take mma; time kernel and
+             plain version beside the bound.
 5. elementwise — hold K2 (ame_elementwise) bit for bit against its plain
              version: the reference's shapes x 3 kinds x 3 dtypes, with and
              without ReLU, NaN / inf / -0 / denormal inputs, a misaligned
              view; time it at the AME max tile (128, 4096) f16 and at
-             (8192, 8192) bf16 beside torch.add/sub/mul and the bytes bound.
+             (8192, 8192) bf16 beside torch.add/sub/mul and the bytes bound,
+             on the device, with events and by host µs per call.
 6. attention — hold K3 (flash_attention) against its plain version: its
              six test shapes in f32 and bf16 within the reference's
              tolerances; a block sweep over both kernels' blocks (bf16 at
@@ -56,12 +59,14 @@ Phases (any failure exits non-zero and prints no result line):
              ``Server(backend="kernel")`` with every kernel count set to 0
              just before and read just after: 196 K1 launches per qwen3
              forward; 96 K1 launches per mamba forward and 48 K4 launches
-             per mamba prefill of more than one token.  One prompt's
+             per mamba prefill of more than one token, every one of them
+             on K4's mma variant.  One prompt's
              prefill logits are held against ``backend="torch"``; a warm
              decode step (and, for mamba, a 300-token prefill) is timed and
              profiled; a reduced model on the card is held against the same
              model on the CPU.
-10. report — one JSON line of every ported kernel, then the last line
+10. report — fail if any device time reads below its bound; one JSON
+             line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -336,32 +341,60 @@ def phase_kernels(cfgs):
     return records
 
 
-def k4_bound(bh, t, p, n, chunk, x_bytes, bc_bytes):
+def k4_bound(bh, t, p, n, chunk, x_bytes, bc_bytes, bc_rows=None):
     """(bound ms, "bytes" | "operations") of one ssd_scan call.  Bytes: x,
-    log_a, b, c read once and y written once.  Operations: per row and
+    log_a, b, c read once and y written once (b and c hold ``bc_rows``
+    distinct rows, default ``bh``; fewer where they are expanded over
+    heads).  Operations: per row and
     chunk of l steps, the cheaper of two exact forms of the scan: the
-    sequential recurrence, 5 N P f32 FLOPs a step (decay the state, add
-    the outer product b x, read out c S); or the chunked form on the causal
-    half of its score block, l(l+1) N for C B^T at the b/c dtype's peak
-    plus l(l+1) P + 4 l N P f32 for G X, C S and B^T X."""
+    sequential recurrence, 5 N P f32 FLOPs a step on the CUDA cores (decay
+    the state, add the outer product b x, read out c S); or the chunked
+    form on the causal half of its score block on the tensor cores, each
+    f32-accurate product at three bf16 passes: l(l+1) N for C B^T (one
+    pass for bf16 b / c, which are exact), l(l+1) P + 4 l N P for G X, C S
+    and B^T X."""
     from repro_torch.launch import hw
     lc = min(chunk, t)
-    nbytes = bh * t * (2 * p * x_bytes + 4 + 2 * n * bc_bytes)
-    bc_peak = hw.PEAK_FLOPS if bc_bytes == 2 else hw.PEAK_FLOPS_F32
+    nbytes = bh * t * (2 * p * x_bytes + 4) \
+        + (bc_rows or bh) * t * 2 * n * bc_bytes
+    cb_passes = 1 if bc_bytes == 2 else 3
     t_ops = 0.0
     for t0 in range(0, t, lc):
         l = min(lc, t - t0)
         recurrence = 5 * l * n * p / hw.PEAK_FLOPS_F32
-        chunked = l * (l + 1) * n / bc_peak \
-            + (l * (l + 1) * p + 4 * l * n * p) / hw.PEAK_FLOPS_F32
+        chunked = (cb_passes * l * (l + 1) * n
+                   + 3 * (l * (l + 1) * p + 4 * l * n * p)) / hw.PEAK_FLOPS
         t_ops += bh * min(recurrence, chunked)
     t_bytes = nbytes / hw.HBM_BW
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _model_layout(bsz, t, cfg, gen, dev):
+    """The scan's operands as ``models.ssm.mamba_apply`` hands them over in
+    bf16 compute: x*dt an f32 (B,T,H,P) product seen as (B,H,T,P); b and c
+    columns of one bf16 (B,T,conv_dim) conv output (time stride conv_dim)
+    expanded over heads (head stride 0); log_a (B,H,T) contiguous."""
+    import torch
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    h, n = d_inner // s.head_dim, s.d_state
+    conv = (torch.randn(bsz, t, d_inner + 2 * n, generator=gen, device=dev)
+            * 0.5).bfloat16()
+    xs, bs, cs = torch.split(conv, [d_inner, n, n], -1)
+    dt = torch.rand(bsz, t, h, generator=gen, device=dev) * 0.5 + 0.05
+    xdt = xs.reshape(bsz, t, h, s.head_dim) * dt[..., None]
+    la = -(dt * 0.4).transpose(1, 2).contiguous()
+    b, c = [v.reshape(bsz, t, 1, n).expand(bsz, t, h, n).transpose(1, 2)
+            for v in (bs, cs)]
+    return xdt.transpose(1, 2), la, b, c
+
+
 def phase_ssd(cfg):
-    """K4 against its plain version; returns per-shape records."""
+    """K4 against its plain version; returns per-shape records.  "main"
+    cases are contiguous (BH,T,.) operands at the serve's widths, "layout"
+    cases the serve's own strided views (:func:`_model_layout`), held
+    against ``ref.ssd_chunked4`` on contiguous copies."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as k4
@@ -377,9 +410,18 @@ def phase_ssd(cfg):
     cases += [("impulse", (1, 64, 4, 4, 16), f32, f32)]
     cases += [("main", (bh, t, s.head_dim, s.d_state, s.chunk), f32, bf16)
               for t in (37, 64, LONG_PROMPT, 2048)]
+    cases += [("layout", (bsz * bh, t, s.head_dim, s.d_state, s.chunk), f32,
+               bf16) for bsz, t in ((1, LONG_PROMPT), (2, 64))]
     records = []
     for kind, (rows, t, p, n, chunk), xdt, bdt in cases:
-        if kind == "impulse":
+        plain = ref.ssd_chunked
+        bc_rows = None
+        if kind == "layout":
+            x, la, b, c = _model_layout(rows // bh, t, cfg, gen, dev)
+            bc_rows = rows // bh
+            plain = lambda *a, chunk: ref.ssd_chunked4(  # noqa: E731
+                *[v.contiguous() for v in a], chunk=chunk)
+        elif kind == "impulse":
             x = torch.zeros(rows, t, p, device=dev)
             x[0, 0] = 1.0
             la = torch.full((rows, t), -0.01, device=dev)
@@ -393,9 +435,10 @@ def phase_ssd(cfg):
                  * 0.5).to(bdt)
             c = (torch.randn(rows, t, n, generator=gen, device=dev)
                  * 0.5).to(bdt)
+        var = k4.variant(x, b, c)
         got = k4.ssd_scan(x, la, b, c, chunk=chunk)
         torch.cuda.synchronize()
-        want = ref.ssd_chunked(x, la, b, c, chunk=chunk)
+        want = plain(x, la, b, c, chunk=chunk)
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"K4 {kind} {(rows, t, p, n)}: shape/dtype "
                                  f"{got.shape} {got.dtype} vs {want.shape} "
@@ -406,16 +449,21 @@ def phase_ssd(cfg):
         ok = bool((diff <= atol + rtol * want.float().abs()).all())
         if kind == "impulse":
             ok = ok and float(got[0, -1].abs().max()) > 0.1
+        if kind in ("main", "layout") and var != "mma":
+            ok = False                  # a main-path shape must take mma
         iters = 10 if t >= 1024 else 20
         ms = timed_ms(lambda *a: k4.ssd_scan(*a, chunk=chunk),
                       [(x, la, b, c)], iters)
         dev_ms = device_ms(lambda *a: k4.ssd_scan(*a, chunk=chunk),
-                           [(x, la, b, c)], iters) if kind == "main" else None
-        plain_ms = timed_ms(lambda *a: ref.ssd_chunked(*a, chunk=chunk),
+                           [(x, la, b, c)], iters) \
+            if kind in ("main", "layout") else None
+        plain_ms = timed_ms(lambda *a: plain(*a, chunk=chunk),
                             [(x, la, b, c)], iters)
         bound_ms, bound_by = k4_bound(rows, t, p, n, chunk,
-                                      x.element_size(), b.element_size())
+                                      x.element_size(), b.element_size(),
+                                      bc_rows)
         rec = dict(kind=kind, bh=rows, t=t, p=p, n=n, chunk=chunk,
+                   variant=var,
                    x_dtype=str(xdt).removeprefix("torch."),
                    bc_dtype=str(bdt).removeprefix("torch."),
                    max_abs_err=err, atol=atol, rtol=rtol, ok=ok, ms=ms,
@@ -423,14 +471,16 @@ def phase_ssd(cfg):
                    bound_by=bound_by)
         records.append(rec)
         log(f"[ssd] ssd_scan {kind:7s} (bh,t,p,n,chunk)={(rows, t, p, n, chunk)} "
-            f"x {rec['x_dtype']} b/c {rec['bc_dtype']}: max_abs_err={err:.3g} "
+            f"x {rec['x_dtype']} b/c {rec['bc_dtype']} {var}"
+            f": max_abs_err={err:.3g} "
             f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'} | kernel "
             f"{ms:.4f} ms" + (f" (device {dev_ms:.4f} ms)" if dev_ms else "")
             + f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})")
     bad = [r for r in records if not r["ok"]]
     if bad:
-        raise AssertionError(f"K4 disagrees with its plain version: {bad}")
+        raise AssertionError(f"K4 disagrees with its plain version or a "
+                             f"main-path shape missed the mma variant: {bad}")
     return records
 
 
@@ -515,14 +565,19 @@ def phase_elementwise(dev):
                 device_ms=device_ms(
                     lambda x, y: k2.ame_elementwise(x, y, kind=kind), args, 20),
                 library_device_ms=device_ms(lib[kind], args, 20),
+                host_us=host_us(
+                    lambda x, y: k2.ame_elementwise(x, y, kind=kind), args, 200),
+                library_host_us=host_us(lib[kind], args, 200),
                 bound_ms=1e3 * nbytes / hw.HBM_BW, bound_by="bytes")
             log(f"[elementwise] ame_elementwise {kind} {(m, c)} {dt_name}: "
                 f"bit-exact {same} | device: kernel {rec['device_ms']:.4f} "
                 f"ms, torch.{kind} {rec['library_device_ms']:.4f} ms | "
                 f"events: kernel {rec['ms']:.4f} ms, plain "
                 f"{rec['plain_ms']:.4f} ms, torch.{kind} "
-                f"{rec['library_ms']:.4f} ms | bound {rec['bound_ms']:.4f} ms "
-                f"(bytes)")
+                f"{rec['library_ms']:.4f} ms | host: kernel "
+                f"{rec['host_us']:.1f} us, torch.{kind} "
+                f"{rec['library_host_us']:.1f} us | bound "
+                f"{rec['bound_ms']:.4f} ms (bytes)")
         records.append(rec)
         if not same:
             bad.append(rec)
@@ -899,12 +954,14 @@ def phase_serve(cfg, dev):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     k1.launches = k4.launches = 0                     # main path starts
+    k4.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
     done = srv.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
                 "ssd_scan": k4.launches}
+    k4_variants = dict(k4.launches_by_variant)
     tokens = sum(len(r.out_tokens) for r in done)
     forwards = srv.prefills + srv.decode_steps
     want = {"ame_gemm": len(k1_layer(cfg)) * cfg.n_layers * forwards,
@@ -916,13 +973,17 @@ def phase_serve(cfg, dev):
         f"(synchronised), {tokens / wall:.1f} tok/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for name, n in launches.items():
-        log(f"[serve] {name} launches: {n} (expected {want[name]})")
+        log(f"[serve] {name} launches: {n} (expected {want[name]})"
+            + (f", by variant {k4_variants}" if name == "ssd_scan" else ""))
     if len(done) != N_REQUESTS:
         raise AssertionError(f"{len(done)} of {N_REQUESTS} requests served")
     if launches != want or launches["ame_gemm"] == 0 \
             or (ssm and launches["ssd_scan"] == 0):
         raise AssertionError("the main path did not go through the kernels "
                              "once per projection / per layer's scan")
+    if k4_variants["fma"]:
+        raise AssertionError(f"a K4 launch of the serve took the fma "
+                             f"variant: {k4_variants}")
     for r in done:
         if not (1 <= len(r.out_tokens) <= MAX_NEW
                 and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -1014,18 +1075,23 @@ def _log_profile(tag, what, step_ms, host_ms, steps, kernels, n_launch):
             f"measured")
         return
     shares = []
-    for name, key in (("ame_gemm", "ame_gemm"),
-                      ("ssd_scan", "ssd_scan_kernel")):
-        ms = sum(v for k, v in kernels.items() if key in k)
-        if ms:
+    for name, key in (("ame_gemm", "ame_gemm"), ("ssd_scan", "ssd_scan_"),
+                      ("cumsum", "tensor_kernel_scan"),
+                      ("copies", "direct_copy_kernel")):
+        hits = [(k, v) for k, v in kernels.items() if key in k]
+        if hits:
+            ms = sum(v for _, v in hits)
             shares.append(f"{name} {ms:.2f} ms ({100 * ms / busy:.1f}% of "
-                          f"busy)")
+                          f"busy, {len(hits)} name(s))")
     log(f"[{tag}] profiled: device busy {busy:.2f} ms in {n_launch} kernel "
         f"launches ({host_ms * 1e3 / n_launch:.1f} us of host time each) of "
         f"{len(kernels)} names; {'; '.join(shares)}; idle share of the "
         f"event-timed call {100 * max(0.0, 1 - busy / step_ms):.1f}%")
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[{tag}]   {v:8.3f} ms  {k[:100]}")
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        if "tensor_kernel_scan" in k or "direct_copy_kernel" in k:
+            log(f"[{tag}]   scan/copy {v:8.3f} ms  {k[:100]}")
 
 
 def phase_breakdown(cfg, params, dev, steps=5):
@@ -1100,14 +1166,26 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def check_bounds(records):
+    """Fail the run if any kernel's device time reads below its bound: the
+    bound is the least time the card could take, so such a reading means
+    a wrong count or a wrong clock."""
+    timed = [r for r in records if r.get("device_ms") is not None]
+    below = [r for r in timed if r["device_ms"] < r["bound_ms"]]
+    log(f"[bounds] {len(timed)} device times against their bounds: "
+        f"{len(below)} below")
+    if below:
+        raise AssertionError(f"device time below the bound: {below}")
+
+
 def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
                  ops_launches):
     """K1's entry: one qwen3 decode layer's seven calls at M = SLOTS,
     summed.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
-    of the mamba serve.  K2's: an (8192, 8192) bf16 add.  K3's: one
-    qwen3-1.7b layer's causal prefill attention.  ``launches``: each
-    kernel's count on the paths that run it (the serves, the ops path).
-    ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
+    of the mamba serve, with the variant it took.  K2's: an (8192, 8192)
+    bf16 add.  K3's: one qwen3-1.7b layer's causal prefill attention.
+    ``launches``: each kernel's count on the paths that run it (the
+    serves, the ops path).  ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
     issue included); ``device_ms`` and ``library_device_ms`` the same
     calls replayed from a CUDA graph (:func:`device_ms`)."""
     layer = [r for r in k1_records
@@ -1151,6 +1229,7 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "launches": sum(by_path["ssd_scan"].values()),
         "launches_by_path": by_path["ssd_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in k4_records),
+        "variant": main["variant"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1170,7 +1249,7 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "launches": ops_launches["ame_elementwise"],
         "launches_by_path": {"ops": ops_launches["ame_elementwise"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_records),
-        **{key: ew[key] for key in timed},
+        **{key: ew[key] for key in timed + ("host_us", "library_host_us")},
         "work": "mfadd of an (8192, 8192) bf16 pair (128 MiB per operand); "
                 "library torch.add",
     }, {
@@ -1207,6 +1286,7 @@ def main() -> int:
     for cfg, small_prompt in ((qwen, 16), (mamba, 40)):
         serves[cfg.name] = phase_serve(cfg, dev)
         phase_small_reference(cfg, dev, small_prompt)
+    check_bounds(k1_records + k4_records + k2_records + k3_records)
     print(json.dumps(kernels_line(k1_records, k4_records, k2_records,
                                   k3_records, serves, ops_launches)),
           flush=True)

@@ -8,7 +8,10 @@ checkout, at first use:
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 The file name carries a hash of the sources and flags, so a library is
-rebuilt only when its source changes.  Nothing here runs at import: the
+rebuilt only when its source changes.  A source elsewhere (``src_dir``, as
+the block sweep in ``tools/csrc/`` that includes a kernel's source to
+instantiate more configurations) builds the same way, with ``csrc/`` on its
+include path.  Nothing here runs at import: the
 CPU tests import every module of the port and never build.  A failed
 build raises; there is no fallback.
 """
@@ -58,23 +61,26 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _digest(name: str) -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    deps = sorted(CSRC.glob("*.cuh"))
+    if src.parent != CSRC:          # it may include any kernel's source
+        deps += sorted(CSRC.glob("*.cu"))
+    for p in deps + [src]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists; returns the library path.  Raises ``RuntimeError`` with the
+def build(name: str, src_dir: Path = CSRC) -> Path:
+    """Compile ``<src_dir>/<name>.cu`` unless a library of the same source
+    hash exists; returns the library path.  Raises ``RuntimeError`` with the
     compiler's output if ``nvcc`` fails."""
-    src = CSRC / f"{name}.cu"
+    src = Path(src_dir) / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
-    lib = BUILD_DIR / f"{name}-{_digest(name)}.so"
+    lib = BUILD_DIR / f"{name}-{_digest(src)}.so"
     if lib.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": []})
         return lib
@@ -119,10 +125,11 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         return {n: f.result() for n, f in futs.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of ``<src_dir>/<name>.cu``, built first if
+    needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name, src_dir)))
         _LIBS[name] = lib
     return lib

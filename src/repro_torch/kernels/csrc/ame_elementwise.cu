@@ -7,12 +7,19 @@
 //
 // Design.  The TPU version cuts the operands into (256, 512) VMEM tiles and
 // pads the ragged edge; none of that means anything here.  The operands are
-// contiguous, so the kernel sees one flat array of n elements and walks it
-// in a grid-stride loop, one launch per call.  Where all three pointers are
-// 16-byte aligned each thread moves 16 bytes per operand per step (4 f32 or
-// 8 bf16 / f16 values) and a scalar loop of the same kernel finishes the
-// tail of n % (16 / sizeof(T)) elements; a misaligned view walks the whole
-// array in that scalar loop.
+// contiguous, so the kernel sees one flat array of n elements, one launch
+// per call.  Where all three pointers are 16-byte aligned the array is
+// n_vec 16-byte vectors (4 f32 or 8 bf16 / f16 values) and a scalar tail of
+// n % (16 / sizeof(T)) elements; a misaligned view is n scalars.  Each
+// thread owns VECS vectors (or scalars) of a block's THREADS x VECS and
+// issues all its loads of a and of b before any arithmetic, so VECS x 32
+// bytes are in flight per thread; the vectors' loads and stores carry the
+// streaming hint (ld.global.cs / st.global.cs: nothing is reused).  The
+// grid covers the array in one pass, block k taking items [k THREADS VECS,
+// (k + 1) THREADS VECS).  THREADS and VECS were chosen by
+// tools/k4_block_sweep.py at the two model cases of chip_smoke.py (a
+// persistent grid of the resident blocks measured 8-10 % slower there and
+// is not kept).
 //
 // Numerics.  Every value is widened to f32, the operation is done once in
 // f32 and the result is rounded once to the operand type.  For bf16 and f16
@@ -44,8 +51,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;  // two waves of 8 resident blocks per SM
+// (threads, vectors per thread) of the pass: the fastest at (8192, 8192)
+// bf16 in the sweep; more vectors a thread gained nothing there, as 16
+// resident blocks of 128 threads an SM already keep 64 KB of loads in
+// flight per SM
+constexpr int kThreads = 128;
+constexpr int kVecs = 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -76,44 +87,73 @@ __device__ __forceinline__ T apply(T a, T b) {
   return o;
 }
 
-// One launch per call: 16-byte vectors over the first n_vec * kVec elements,
-// then one element per step over the tail [n_vec * kVec, n).  A misaligned
-// view passes n_vec = 0 and walks the whole array one element at a time.
-template <typename T, int KIND, bool RELU>
-__global__ void __launch_bounds__(kThreads)
+// One launch per call over items: the vectors and, past them, the scalar
+// tail [n_vec kVec, n).  Block k takes the THREADS VECS items from
+// k THREADS VECS, thread i items i, i + THREADS, ...  A misaligned view
+// passes n_vec = 0 and takes the whole array one element at a time.
+template <typename T, int KIND, bool RELU, int THREADS, int VECS>
+__global__ void __launch_bounds__(THREADS)
 ew_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ o, long long n_vec,
           long long n) {
   constexpr int kVec = 16 / sizeof(T);
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const uint4* va = reinterpret_cast<const uint4*>(a);
   const uint4* vb = reinterpret_cast<const uint4*>(b);
   uint4* vo = reinterpret_cast<uint4*>(o);
-  for (long long i = first; i < n_vec; i += stride) {
-    uint4 xa = va[i], xb = vb[i], xo;
-    const T* ta = reinterpret_cast<const T*>(&xa);
-    const T* tb = reinterpret_cast<const T*>(&xb);
-    T* to = reinterpret_cast<T*>(&xo);
+  const long long tail0 = n_vec * kVec;
+  const long long base = static_cast<long long>(blockIdx.x) * THREADS * VECS + threadIdx.x;
+  uint4 xa[VECS], xb[VECS];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) to[e] = apply<T, KIND, RELU>(ta[e], tb[e]);
-    vo[i] = xo;
+  for (int u = 0; u < VECS; ++u) {
+    const long long i = base + u * THREADS;
+    if (i < n_vec) {
+      xa[u] = __ldcs(va + i);
+      xb[u] = __ldcs(vb + i);
+    }
   }
-  for (long long i = n_vec * kVec + first; i < n; i += stride) {
-    o[i] = apply<T, KIND, RELU>(a[i], b[i]);
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const long long i = base + u * THREADS;
+    if (i < n_vec) {
+      uint4 xo;
+      const T* ta = reinterpret_cast<const T*>(&xa[u]);
+      const T* tb = reinterpret_cast<const T*>(&xb[u]);
+      T* to = reinterpret_cast<T*>(&xo);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) to[e] = apply<T, KIND, RELU>(ta[e], tb[e]);
+      __stcs(vo + i, xo);
+    }
+  }
+  if (base < n - tail0) {
+    T sa[VECS], sb[VECS];
+#pragma unroll
+    for (int u = 0; u < VECS; ++u) {
+      const long long i = tail0 + base + u * THREADS;
+      if (i < n) {
+        sa[u] = a[i];
+        sb[u] = b[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < VECS; ++u) {
+      const long long i = tail0 + base + u * THREADS;
+      if (i < n) o[i] = apply<T, KIND, RELU>(sa[u], sb[u]);
+    }
   }
 }
 
-template <typename T, int KIND, bool RELU>
+template <typename T, int KIND, bool RELU, int THREADS, int VECS>
 cudaError_t launch(const void* a, const void* b, void* o, long long n, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
+  constexpr long long kPer = static_cast<long long>(THREADS) * VECS;
   if (n <= 0) return cudaSuccess;
   const bool aligned = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
                          reinterpret_cast<uintptr_t>(o)) % 16) == 0;
   const long long n_vec = aligned ? n / kVec : 0;
   const long long tail = n - n_vec * kVec;
-  const long long blocks = ((n_vec > tail ? n_vec : tail) + kThreads - 1) / kThreads;
-  const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-  ew_kernel<T, KIND, RELU><<<grid, kThreads, 0, stream>>>(
+  const long long items = n_vec > tail ? n_vec : tail;
+  const long long blocks = (items + kPer - 1) / kPer;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  ew_kernel<T, KIND, RELU, THREADS, VECS><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(o), n_vec, n);
   return cudaGetLastError();
 }
@@ -121,7 +161,8 @@ cudaError_t launch(const void* a, const void* b, void* o, long long n, cudaStrea
 template <typename T, int KIND>
 cudaError_t by_relu(int relu, const void* a, const void* b, void* o, long long n,
                     cudaStream_t s) {
-  return relu ? launch<T, KIND, true>(a, b, o, n, s) : launch<T, KIND, false>(a, b, o, n, s);
+  return relu ? launch<T, KIND, true, kThreads, kVecs>(a, b, o, n, s)
+              : launch<T, KIND, false, kThreads, kVecs>(a, b, o, n, s);
 }
 
 template <typename T>

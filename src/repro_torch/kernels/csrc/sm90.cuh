@@ -1,5 +1,5 @@
 // sm90.cuh — the sm_90a building blocks the tensor-core kernels share
-// (ame_gemm.cu, flash_attention.cu): cp.async copies, ldmatrix,
+// (ame_gemm.cu, flash_attention.cu, ssd_scan.cu): cp.async copies, ldmatrix,
 // mma.sync.m16n8k16 with f32 accumulators, and the one-time opt-in to
 // more than 48 KB of dynamic shared memory.
 #pragma once
@@ -21,6 +21,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 16 : 0));
+}
+// 4 bytes global -> shared through L1, zero-filled when !full
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -3,12 +3,14 @@ of K2.
 
 Port of ``repro/kernels/elementwise.py`` (``_ew_kernel``,
 ``ame_elementwise``).  The kernel is ``csrc/ame_elementwise.cu``: one
-launch, a flat grid-stride pass over the contiguous operands, 16-byte
-vectors where all three pointers are aligned and a scalar tail, the
-operation done once in f32 and rounded once to the operand type, ReLU
-after the rounding.  The TPU's (256, 512) tiles and pad-and-slice have no
-counterpart.  This wrapper validates, allocates the output and launches on
-PyTorch's current stream; it never synchronises.
+launch, one pass of a grid that covers the contiguous operands, each thread
+loading :data:`PASS`'s 16-byte vectors of a and of b (streaming cache
+hints) before any arithmetic where all three pointers are aligned, and a
+scalar tail in the same launch; the operation done once in f32 and rounded
+once to the operand type, ReLU after the rounding.  The TPU's (256, 512)
+tiles and pad-and-slice have no counterpart.  This wrapper validates,
+allocates the output and launches on PyTorch's current stream; it never
+synchronises.
 """
 from __future__ import annotations
 
@@ -20,19 +22,26 @@ from repro_torch.kernels import _build
 
 KINDS = {"add": 0, "sub": 1, "mul": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: (threads a block, 16-byte vectors a thread) of the pass (kThreads, kVecs
+#: in the source), chosen by tools/k4_block_sweep.py
+PASS = (128, 1)
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
 
+_fn = None
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ame_elementwise")
-    fn = lib.ame_elementwise
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+
+def _kernel():
+    """The C entry point with its argtypes set, looked up once."""
+    global _fn
+    if _fn is None:
+        f = _build.load("ame_elementwise").ame_elementwise
+        f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+        f.restype = ctypes.c_int
+        _fn = f
+    return _fn
 
 
 def ame_elementwise(a: torch.Tensor, b: torch.Tensor, *, kind: str = "add",
@@ -61,10 +70,9 @@ def ame_elementwise(a: torch.Tensor, b: torch.Tensor, *, kind: str = "add",
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    rc = _lib().ame_elementwise(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-        DTYPE_CODES[a.dtype], KINDS[kind], int(bool(relu)),
-        torch.cuda.current_stream(a.device).cuda_stream)
+    rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                   DTYPE_CODES[a.dtype], KINDS[kind], int(bool(relu)),
+                   torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ame_elementwise launch failed: cudaError {rc} "
                            f"at {tuple(a.shape)} {a.dtype} {kind} "

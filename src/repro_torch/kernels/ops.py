@@ -45,15 +45,11 @@ def ssd(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
 
 def ssd4(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
     """4-D SSD: x (B,H,T,P), log_a (B,H,T), b/c (B,H,T,N).  The kernel
-    takes (B*H)-flattened contiguous rows, so a transposed input is copied
-    here."""
+    reads strided views (unit stride on P and N; b/c may be expanded over
+    heads), so the model's (B,T,H,.) layout is passed without a copy and y
+    comes back in x's layout."""
     if use_kernel and x.is_cuda:
-        bsz, h, t, p = x.shape
-        y = ssd_scan(x.reshape(bsz * h, t, p).contiguous(),
-                     log_a.reshape(bsz * h, t).contiguous(),
-                     b.reshape(bsz * h, t, -1).contiguous(),
-                     c.reshape(bsz * h, t, -1).contiguous(), chunk=chunk)
-        return y.reshape(bsz, h, t, p)
+        return ssd_scan(x, log_a, b, c, chunk=chunk)
     return ref.ssd_chunked4(x, log_a, b, c, chunk=chunk)
 
 

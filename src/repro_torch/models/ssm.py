@@ -107,24 +107,31 @@ def mamba_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
 
     if state is None or t > 1:
         # chunked SSD over the whole sequence, heads batched; x*dt is f32
-        # (bf16 x f32 promotes), b and c stay in the compute dtype
+        # (bf16 x f32 promotes), b and c stay in the compute dtype.  The
+        # scan reads (B,H,T,.) views of the (B,T,H,.) tensors; with one
+        # group every head reads the same b and c (a head-stride-0 view)
         xdt = xh * dt[..., None]
-        bh_rep = bg.repeat_interleave(rep, 2)
-        y = ops.ssd4(xdt.transpose(1, 2), log_a.transpose(1, 2).float(),
-                     bh_rep.transpose(1, 2),
-                     cg.repeat_interleave(rep, 2).transpose(1, 2),
+        la = log_a.transpose(1, 2).contiguous()            # (B,H,T)
+        if g == 1:
+            bh_rep = bg.expand(b, t, nheads, n)
+            ch_rep = cg.expand(b, t, nheads, n)
+        else:
+            bh_rep = bg.repeat_interleave(rep, 2)
+            ch_rep = cg.repeat_interleave(rep, 2)
+        y = ops.ssd4(xdt.transpose(1, 2), la, bh_rep.transpose(1, 2),
+                     ch_rep.transpose(1, 2),
                      use_kernel=backend.mode == "kernel", chunk=s.chunk)
         y = y.transpose(1, 2)                              # (B,T,H,P)
         if state is not None:
             # prefill: closed-form final state (log_a <= 0 so the weights
             # exp(cum_T - cum_t) never overflow):
             #   S = a_total * S_in + sum_t exp(cum_T - cum_t) b_t (x*dt)_t
-            cum = torch.cumsum(log_a.float(), 1)           # (B,T,H)
-            wts = torch.exp(cum[:, -1:] - cum)
+            cum = torch.cumsum(la, -1)                     # (B,H,T)
+            wts = torch.exp(cum[..., -1:] - cum).transpose(1, 2)
             s_new = torch.einsum("bthn,bthp->bhnp",
                                  bh_rep.float() * wts[..., None],
                                  xdt.float())
-            s_new = s_new + torch.exp(cum[:, -1])[..., None, None] \
+            s_new = s_new + torch.exp(cum[..., -1])[..., None, None] \
                 * state["ssm"]
             new_state = {"conv": new_conv.to(state["conv"].dtype),
                          "ssm": s_new}

@@ -193,11 +193,53 @@ def test_ssd_kernel_matches_plain(cuda, bh, t, p, n, chunk, xdt, bdt):
         **SSD_TOL[xdt])
 
 
-def test_ssd_kernel_carries_state_across_chunks(cuda):
-    x = torch.zeros(1, 64, 4, device=cuda)
+#: the main path's lengths: one and a few tokens, a chunk boundary, two
+#: chunks and a ragged third, the longest prefill
+SSD_T = [1, 8, 16, 37, 64, 128, 129, 300, 2048]
+
+
+@pytest.mark.parametrize("variant", ["mma", "fma"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("t", SSD_T)
+def test_ssd_variants_match_plain(cuda, t, xdt, variant):
+    """Both variants at mamba2-370m's widths (BH 32, P 64, N 128, bf16
+    b/c, chunk 128); past T = 128 the state is carried across chunks."""
+    x, la, b, c = _ssd_inputs(32, t, 64, 128, xdt, torch.bfloat16, cuda)
+    assert k4.variant(x, b, c) == "mma"
+    before = dict(k4.launches_by_variant)
+    got = k4.ssd_scan(x, la, b, c, chunk=128, variant=variant)
+    torch.cuda.synchronize()
+    assert k4.launches_by_variant[variant] == before[variant] + 1
+    assert got.dtype == xdt and got.shape == x.shape
+    torch.testing.assert_close(
+        got.float(), ref.ssd_chunked(x, la, b, c, chunk=128).float(),
+        **SSD_TOL[xdt])
+
+
+@pytest.mark.parametrize("bh,t,p,n,chunk", [
+    (32, 300, 64, 128, 128), (4, 100, 64, 128, 37), (2, 300, 64, 64, 32),
+    (2, 300, 64, 128, 256), (3, 50, 128, 16, 16)])
+def test_ssd_mma_shapes_match_plain(cuda, bh, t, p, n, chunk):
+    """The mma kernel off the serve's widths: a chunk of 37 rows pads each
+    tile to 48 (rows past the chunk are zero), a chunk of 256 is walked as
+    128-row chunks, N = 64 and 16, P = 128."""
+    x, la, b, c = _ssd_inputs(bh, t, p, n, torch.float32, torch.bfloat16,
+                              cuda)
+    assert k4.variant(x, b, c) == "mma"
+    got = k4.ssd_scan(x, la, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.ssd_chunked(x, la, b, c, chunk=chunk),
+                               **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("p,n,bdt", [(4, 4, torch.float32),
+                                     (16, 16, torch.bfloat16)],
+                         ids=["fma", "mma"])
+def test_ssd_kernel_carries_state_across_chunks(cuda, p, n, bdt):
+    x = torch.zeros(1, 64, p, device=cuda)
     x[0, 0] = 1.0
     la = torch.full((1, 64), -0.01, device=cuda)
-    ones = torch.ones(1, 64, 4, device=cuda)
+    ones = torch.ones(1, 64, n, device=cuda, dtype=bdt)
     got = k4.ssd_scan(x, la, ones, ones, chunk=16)
     torch.cuda.synchronize()
     assert float(got[0, -1].abs().max()) > 0.1
@@ -205,16 +247,38 @@ def test_ssd_kernel_carries_state_across_chunks(cuda):
                                **SSD_TOL[torch.float32])
 
 
-def test_ssd4_takes_transposed_inputs(cuda):
-    x, la, b, c = _ssd_inputs(6, 50, 16, 8, torch.float32, torch.bfloat16,
-                              cuda)
-    four = [v.reshape(2, 3, *v.shape[1:]) for v in (x, la, b, c)]
-    # (B,T,H,*) stored, (B,H,T,*) seen — as the model hands them over
+@pytest.mark.parametrize("layout", ["transposed", "conv"])
+@pytest.mark.parametrize("bdt", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd4_takes_transposed_inputs(cuda, bdt, layout):
+    """ops.ssd4 on the model's views, x and log_a transposed out of
+    (B,T,H,.), and b and c either transposed out of (B,T,H,N) (time stride
+    H N) or, as mamba_apply hands them over, columns of one (B,T,conv_dim)
+    conv output expanded over heads (time stride conv_dim, head stride 0);
+    y comes back in x's layout.  Held against ref.ssd_chunked4 on
+    contiguous copies."""
+    bsz, h, t, p, n = 2, 4, 150, 64, 128
+    x, la, b, c = _ssd_inputs(bsz * h, t, p, n, torch.float32, bdt, cuda)
+    four = [v.reshape(bsz, h, *v.shape[1:]) for v in (x, la, b, c)]
+    # (B,T,H,*) stored, (B,H,T,*) seen
     tr = [v.transpose(1, 2).contiguous().transpose(1, 2) for v in four]
+    if layout == "conv":
+        conv = torch.cat([x.new_zeros(bsz, t, h * p).to(bdt),
+                          four[2][:, 0], four[3][:, 0]], -1)
+        cols = torch.split(conv, [h * p, n, n], -1)[1:]
+        tr[2:] = [v.reshape(bsz, t, 1, n).expand(bsz, t, h, n)
+                  .transpose(1, 2) for v in cols]
+        assert tr[2].stride() == (t * (h * p + 2 * n), 0, h * p + 2 * n, 1)
+    else:
+        assert tr[2].stride(2) == h * n
     assert not tr[0].is_contiguous()
-    got = ops.ssd4(*tr, use_kernel=True, chunk=32)
-    torch.testing.assert_close(got, ref.ssd_chunked4(*four, chunk=32),
-                               **SSD_TOL[torch.float32])
+    before = dict(k4.launches_by_variant)
+    got = ops.ssd4(*tr, use_kernel=True, chunk=128)
+    torch.cuda.synchronize()
+    var = "mma" if bdt == torch.bfloat16 else "fma"
+    assert k4.launches_by_variant[var] == before[var] + 1
+    assert got.stride() == tr[0].stride()
+    want = ref.ssd_chunked4(*[v.contiguous() for v in tr], chunk=128)
+    torch.testing.assert_close(got, want, **SSD_TOL[torch.float32])
 
 
 def test_ssd_launch_counter_counts_kernel_launches_only(cuda):
@@ -232,8 +296,8 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
                               cuda)
     with pytest.raises(ValueError, match="CUDA"):
         k4.ssd_scan(x, la.cpu(), b, c)
-    with pytest.raises(ValueError, match="contiguous"):
-        k4.ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), la, b, c)
+    with pytest.raises(ValueError, match="unit stride"):
+        k4.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), la, b, c)
     with pytest.raises(TypeError):
         k4.ssd_scan(x.half(), la, b, c)
     with pytest.raises(TypeError):
@@ -243,13 +307,28 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         k4.ssd_scan(*_ssd_inputs(1, 256, 8, 128, torch.float32,
                                  torch.float32, cuda), chunk=256)
+    # a variant is named, never tried after another fails
+    with pytest.raises(ValueError, match="mma variant"):
+        k4.ssd_scan(x, la, b, c, variant="mma")
+    xm, lm, bm, cm = _ssd_inputs(2, 20, 40, 128, torch.float32,
+                                 torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma variant"):
+        k4.ssd_scan(xm, lm, bm, cm, variant="mma")     # P % 16 != 0
+    with pytest.raises(ValueError, match="variant must be"):
+        k4.ssd_scan(xm, lm, bm, cm, variant="wgmma")
 
 
 def test_ssd_smem_claim_matches_the_source_and_fits(cuda):
-    lib = k4._lib()
-    for l, n in ((128, 128), (64, 128), (16, 4), (100, 24)):
-        assert lib.ssd_scan_smem_bytes(l, n) == k4.smem_bytes(l, n)
-    assert k4.smem_bytes(128, 128) < hw.SMEM_PER_BLOCK
+    fn = k4._fn("ssd_scan_smem_bytes")
+    for l, n in ((128, 128), (64, 128), (16, 4), (100, 24), (37, 128),
+                 (256, 64)):
+        assert fn(0, l, n, 0) == k4.smem_bytes(l, n, variant="fma")
+        if n % 16:
+            continue
+        for code, xdt in ((0, torch.float32), (1, torch.bfloat16)):
+            assert fn(1, l, n, code) == k4.smem_bytes(l, n, x_dtype=xdt)
+    assert fn(1, 128, 128, 2) == 0                  # no such x dtype
+    assert k4.smem_bytes(128, 128, variant="fma") < hw.SMEM_PER_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +360,7 @@ def _ew_pair(m, c, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", EW_DTYPES, ids=str)
 @pytest.mark.parametrize("kind", ["add", "sub", "mul"])
 @pytest.mark.parametrize("m,c", [(128, 2048), (57, 129), (1, 8), (128, 4096),
-                                 (3, 5)])
+                                 (3, 5), (1, 1), (1000, 1001), (4097, 129)])
 def test_elementwise_kernel_bit_exact(cuda, m, c, kind, dtype, relu):
     a, b = _ew_pair(m, c, dtype, cuda)
     got = k2.ame_elementwise(a, b, kind=kind, relu=relu)
@@ -321,6 +400,20 @@ def test_elementwise_kernel_misaligned_view(cuda, dtype):
                          ref.elementwise(kind, a, b, relu=True))
         assert_same_bits(k2.ame_elementwise(b, a, kind=kind),
                          ref.elementwise(kind, b, a))
+
+
+@pytest.mark.parametrize("kind", ["add", "sub", "mul"])
+@pytest.mark.parametrize("dtype", EW_DTYPES, ids=str)
+def test_elementwise_pass_covers_tails_bit_exact(cuda, dtype, kind):
+    """The one pass at a scalar tail, many blocks of items with a partial
+    last block, and a misaligned view (the scalar pass), bit for bit."""
+    base = torch.randn(4097 * 129 + 1, device=cuda).to(dtype)
+    cases = [_ew_pair(57, 129, dtype, cuda), _ew_pair(4097, 129, dtype, cuda),
+             (base[1:].view(4097, 129), _ew_pair(4097, 129, dtype, cuda)[1])]
+    for a, b in cases:
+        for relu in (False, True):
+            got = k2.ame_elementwise(a, b, kind=kind, relu=relu)
+            assert_same_bits(got, ref.elementwise(kind, a, b, relu=relu))
 
 
 def test_elementwise_launch_counter_counts_kernel_launches_only(cuda):

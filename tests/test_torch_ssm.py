@@ -177,11 +177,169 @@ def test_ssd_smem_claim_fits_a_block():
     l, n, p = 128, 128, 64
     whole = 4 * (n * p + l * p + 2 * l * n + l * l)
     assert whole > hw.SMEM_PER_BLOCK
-    # ... so the grid splits P; the claim at full width fits
-    assert k4.smem_bytes(l, n) < hw.SMEM_PER_BLOCK
-    assert k4.smem_bytes() == k4.smem_bytes(128, 128) == 215_552
-    assert k4.smem_bytes(256, 128) > hw.SMEM_PER_BLOCK
+    # ... so the grid splits P; each variant's claim at full width fits
+    assert k4.smem_bytes(l, n, variant="fma") == 215_552
+    assert k4.smem_bytes() == k4.smem_bytes(l, n, variant="mma") == 198_144
+    assert k4.smem_bytes(l, n, x_dtype=torch.bfloat16) == 189_952
+    # the fma variant keeps the whole chunk; mma walks 128-row chunks
+    assert k4.smem_bytes(256, 128, variant="fma") > hw.SMEM_PER_BLOCK
+    assert k4.smem_bytes(256, 128) == k4.smem_bytes(128, 128)
+    assert k4.smem_bytes(37, 128) < k4.smem_bytes(128, 128)
+    with pytest.raises(ValueError, match="variant"):
+        k4.smem_bytes(l, n, variant="wgmma")
     assert "ssd_scan" in _build.sources()
+
+
+def _serve_scan_operands(t, monkeypatch, batch=1):
+    """The operands the full-width mamba2-370m block hands the scan for a
+    prompt of ``t`` tokens in bf16 compute (the serve's dtype), caught at
+    ``ops.ssd4``."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import TORCH
+    cfg = get("mamba2-370m").with_policy(compute_dtype="bfloat16")
+    params = ssm.mamba_init(torch.Generator().manual_seed(0), cfg,
+                            torch.bfloat16, "cpu")
+    seen = []
+
+    def catch(x, log_a, b, c, **kw):
+        seen.append((x, log_a, b, c))
+        return torch.zeros_like(x)
+    monkeypatch.setattr(ops, "ssd4", catch)
+    u = torch.randn(batch, t, cfg.d_model).bfloat16()
+    ssm.mamba_apply(params, u, cfg, backend=TORCH)
+    (x, log_a, b, c), = seen
+    return cfg, x, log_a, b, c
+
+
+@pytest.mark.parametrize("t", [1, 2, 16, 37, 64, 128, 129, 300, 512])
+def test_variant_takes_mma_at_every_serve_shape(t, monkeypatch):
+    cfg, x, log_a, b, c = _serve_scan_operands(t, monkeypatch)
+    s = cfg.ssm
+    assert x.shape == (1, 32, t, s.head_dim) and b.shape == (1, 32, t,
+                                                              s.d_state)
+    assert x.dtype == torch.float32 and b.dtype == c.dtype == torch.bfloat16
+    assert k4.variant(x, b, c) == "mma"
+    # no copies: x is the (B,T,H,P) product seen transposed, b and c are
+    # the conv output's columns expanded over heads (head stride 0)
+    assert x.stride() == (t * 32 * s.head_dim, s.head_dim, 32 * s.head_dim, 1)
+    assert b.stride(1) == c.stride(1) == 0 and log_a.is_contiguous()
+    assert k4.smem_bytes(min(s.chunk, t), s.d_state) <= hw.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,t,p,n,chunk", SSD_SHAPES)
+def test_variant_takes_fma_at_the_reference_shapes(bh, t, p, n, chunk,
+                                                   dtype):
+    x = torch.zeros(bh, t, p, dtype=TDT[dtype])
+    b = torch.zeros(bh, t, n, dtype=TDT[dtype])
+    # mma needs bf16 b/c and N a multiple of 16: the reference's N = 16
+    # shape in bf16 takes it, its N = 4 / 8 shapes and f32 b/c never do
+    mma = dtype == "bfloat16" and n % 16 == 0 and p % 16 == 0
+    assert k4.variant(x, b) == ("mma" if mma else "fma")
+    assert k4.variant(x, b.float()) == "fma"
+    assert k4.variant(x[..., 1:], b) == "fma"        # rows off 16 bytes
+    assert k4.smem_bytes(min(chunk, t), n, variant="fma") \
+        <= hw.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("t", [2, 300])
+def test_c_args_pass_the_serve_views_strides(t, monkeypatch):
+    """The C call sees the model's own strides: x and y (B,H,T,P) read
+    out of (B,T,H,P), b and c with head stride 0 and the conv output's
+    time stride, log_a contiguous (B,H,T); T is the chunk length cap."""
+    cfg, x, log_a, b, c = _serve_scan_operands(t, monkeypatch)
+    s = cfg.ssm
+    h, conv_dim = 32, s.expand * cfg.d_model + 2 * s.d_state
+    out = torch.empty_like(x)
+    args = k4.c_args(x, log_a, b, c, out, s.chunk)
+    assert len(args) == len(k4.C_ARGTYPES)
+    assert args[5:13] == (1, h, t, s.head_dim, s.d_state, min(s.chunk, t),
+                          0, 1)
+    xs = (t * h * s.head_dim, s.head_dim, h * s.head_dim)
+    bs = (t * conv_dim, 0, conv_dim)
+    assert tuple(args[13]) == xs + xs + (h * t, t, 1) + bs + bs
+
+
+def _load_tool(name):
+    """tools/<name>.py, loaded by path (tools/ is not a package)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("source,macro,shipped", [
+    ("ssd_scan", "SSD_SWEEP_CONFIGS", ("kMmaBlockP", "kMmaStages")),
+    ("ame_elementwise", "EW_SWEEP_CONFIGS", ("kThreads", "kVecs"))])
+def test_block_sweep_builds_what_it_names(source, macro, shipped):
+    """tools/k4_block_sweep.py's lists are the instantiations of its sweep
+    sources, and they hold the configuration each wrapper ships (the
+    constants of the kernel's own source), which the wrapper names."""
+    import re
+    tool = _load_tool("k4_block_sweep")
+    sweep = (tool.SWEEP_CSRC / f"{source}_sweep.cu").read_text()
+    assert f'#include "{source}.cu"' in sweep
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", sweep, re.S).group(1)
+    built = tuple((int(a), int(b))
+                  for a, b in re.findall(r"X\((\d+), (\d+)\)", body))
+    kernel = (_build.CSRC / f"{source}.cu").read_text()
+    ship = tuple(int(re.search(rf"constexpr int {c} = (\d+);", kernel)
+                     .group(1)) for c in shipped)
+    if source == "ssd_scan":
+        assert built == tool.K4_CONFIGS
+        assert ship == (k4.MMA_BLOCK_P, k4.MMA_STAGES)
+    else:
+        from repro_torch.kernels import elementwise as k2
+        assert built == tool.K2_CONFIGS
+        assert ship == k2.PASS
+    assert ship in built
+
+
+def _k4_precision():
+    return _load_tool("k4_precision")
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_split_bf16_products_stay_within_the_tolerance(case):
+    """The mma kernel's arithmetic (three bf16 planes per f32 operand),
+    emulated on the CPU, against the f64 sequential recurrence at the
+    reference's shapes and the main path's (2, 300 / 2048, 64, 128), and
+    at a slow decay; two planes miss the limit at the slow decay."""
+    tool = _k4_precision()
+    assert len(tool.CASES) == 8
+    errs = tool.errors(tool.CASES[case], torch.Generator().manual_seed(case))
+    assert errs["three planes"][1] <= 1.0, errs
+    assert errs["plain f32"][1] <= 1.0, errs
+    (bh, t, p, n, chunk), xdt, _, decay = tool.CASES[case]
+    if decay < 0.1:
+        assert errs["two planes"][1] > 1.0, errs
+
+
+@pytest.mark.parametrize("t,chunk", [(37, 16), (300, 128), (9, 4)])
+def test_ssd4_takes_strided_and_expanded_views_bit_for_bit(t, chunk):
+    """ops.ssd4 on the model's views (x and log_a transposed out of
+    (B,T,H,.), b and c expanded over heads) equals the call on contiguous
+    copies bit for bit, on both dtypes of b / c."""
+    bsz, h, p, n = 2, 4, 16, 16
+    g = torch.Generator().manual_seed(t)
+    x = torch.randn(bsz, t, h, p, generator=g)
+    la = -torch.rand(bsz, t, h, generator=g)
+    for bdt in (torch.float32, torch.bfloat16):
+        conv = torch.randn(bsz, t, 3 * n, generator=g).to(bdt)
+        b = conv[..., n:2 * n].reshape(bsz, t, 1, n).expand(bsz, t, h, n)
+        c = conv[..., 2 * n:].reshape(bsz, t, 1, n).expand(bsz, t, h, n)
+        views = (x.transpose(1, 2), la.transpose(1, 2), b.transpose(1, 2),
+                 c.transpose(1, 2))
+        assert views[2].stride(1) == 0 and not views[0].is_contiguous()
+        copies = [v.contiguous() for v in views]
+        for use_kernel in (True, False):
+            got = ops.ssd4(*views, use_kernel=use_kernel, chunk=chunk)
+            want = ops.ssd4(*copies, use_kernel=use_kernel, chunk=chunk)
+            assert got.shape == (bsz, h, t, p)
+            assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
