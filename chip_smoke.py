@@ -15,20 +15,23 @@ Phases (any failure exits non-zero and prints no result line):
              nvcc (one process per source, all at once); print the build
              seconds and each instantiation's registers and spills.
 3. kernels — hold K1 (ame_gemm) against its plain version at the main
-             paths' shapes (qwen3-1.7b and mamba2-370m projections at
-             m = 1, 4, 64 and mamba's 300) and the ragged test shapes;
+             paths' shapes (qwen3-1.7b, mamba2-370m and zamba2-2.7b
+             projections at m = 1, 4, 64 and, for the SSM and hybrid
+             models, 300) and the ragged test shapes;
              every main-path shape must take the tensor-core variant, and
              each line names the variant it took; time the kernel and
              torch.matmul (the library yardstick, which the port never
              calls) on the device and with events, the plain version with
              events, and the host time of a call, beside the bound.
 4. ssd     — hold K4 (ssd_scan) against its plain version at the reference
-             test shapes (f32, bf16), the impulse test and the main path's
-             shapes (BH 32, P 64, N 128, chunk 128, f32 x, bf16 b/c) at
-             T = 37, 64, 300 (two chunk boundaries, padded third chunk) and
-             2048; each line names the variant (and mma configuration) it
-             took, and every main-path shape must take mma; time kernel and
-             plain version beside the bound.
+             test shapes (f32, bf16), the impulse test and the main paths'
+             shapes (mamba2-370m: BH 32, P 64, N 128; zamba2-2.7b: BH 80,
+             P 64, N 64; chunk 128, f32 x, bf16 b/c) at T = 37, 64, 300
+             (two chunk boundaries, padded third chunk) and 2048, and on
+             the serve's own strided views; each line names the variant
+             (and mma configuration) it took, and every main-path shape
+             must take mma; time kernel and plain version beside the
+             bound.
 5. elementwise — hold K2 (ame_elementwise) bit for bit against its plain
              version: the reference's shapes x 3 kinds x 3 dtypes, with and
              without ReLU, NaN / inf / -0 / denormal inputs, a misaligned
@@ -49,23 +52,34 @@ Phases (any failure exits non-zero and prints no result line):
              (59.4 FLOP/cycle, 14.9 GFLOP/s, 256 launches); the batched
              executors bit-exact with the numpy strict interpreter, and
              ew_on_engine_batched bit-exact with K2 on f16 add/sub/mul.
-8. ops     — the ops entry point (this slice's path): ops.elementwise and
+8. runtime — quickstart part 2 through repro_torch.runtime on the card:
+             pim_gemm 256x192x96 at 1 and 2 pseudo-channels bit-exact with
+             the same calls on the CPU, their command traces byte-identical,
+             and the cluster values of results/BENCH_runtime.json (makespan
+             parity 294016 cycles, 4-stack efficiencies 0.994646 GEMM and
+             0.986539 GEMV) exactly; modeled cycles, not H100 numbers.
+9. ops     — the ops entry point (this slice's path): ops.elementwise and
              ops.attention at the model shapes, every kernel count set to
              0 just before and read just after; outputs held against the
              plain versions.
-9. serve   — full-width qwen3-1.7b (28 layers) and then full-width
-             mamba2-370m (48 layers), f32 parameters and bf16 compute from
-             a seeded generator, each serves seeded requests through
-             ``Server(backend="kernel")`` with every kernel count set to 0
-             just before and read just after: 196 K1 launches per qwen3
-             forward; 96 K1 launches per mamba forward and 48 K4 launches
-             per mamba prefill of more than one token, every one of them
-             on K4's mma variant.  One prompt's
-             prefill logits are held against ``backend="torch"``; a warm
-             decode step (and, for mamba, a 300-token prefill) is timed and
-             profiled; a reduced model on the card is held against the same
-             model on the CPU.
-10. report — fail if any device time reads below its bound; one JSON
+10. serve  — full-width qwen3-1.7b (28 layers), then full-width
+             mamba2-370m (48 layers), then full-width zamba2-2.7b (54
+             mamba layers, 9 applications of 2 shared attention blocks,
+             ``lora_b`` filled with seeded values), f32 parameters and bf16
+             compute from a seeded generator, each serves seeded requests
+             through ``Server(backend="kernel")`` with every kernel count
+             set to 0 just before and read just after: 196 K1 launches per
+             qwen3 forward; 96 K1 per mamba forward and 48 K4 per mamba
+             prefill of more than one token; 162 K1 per zamba2 forward
+             (54 x 2 mamba projections + 9 x 6 shared-block projections)
+             and 54 K4 per zamba2 prefill of more than one token; every K4
+             launch on its mma variant.  One prompt's prefill logits are
+             held against ``backend="torch"``; a warm decode step (and, for
+             mamba and zamba2, a 300-token prefill) is timed and profiled,
+             with zamba2's per-application LoRA merge profiled on its own;
+             a reduced model on the card is held against the same model on
+             the CPU.
+11. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -118,17 +132,33 @@ SERVE_F32_LOGITS_TOL = (1e-3, 1e-3)
 #: bf16 activation one ulp (2^-8 relative) apart now and then, and the
 #: layers carry that on, 48 layers of the seeded mamba2-370m further than
 #: 28 of qwen3-1.7b; bf16 compute itself moves their logits 0.08 and 0.83
-#: from f32 compute.  The bf16-vs-f32 distance is printed, not a limit.
+#: from f32 compute.  For these two the bf16-vs-f32 distance is printed,
+#: not a limit.
 SERVE_LOGITS_ATOL = {"qwen3-1.7b": 0.25, "mamba2-370m": 0.5}
+#: zamba2-2.7b's bf16 limit is derived on the card, as
+#: tests/test_torch_ssm.py::test_bf16_compute_matches_jax derives its own:
+#: from the plain (torch) path's bf16-vs-f32 distance on the same prompt.
+#: Both bf16 runs round the same f32 function, so if the kernel's run is
+#: no further from the f32 result than the plain run is, the two bf16 runs
+#: are at most twice that distance apart (triangle inequality).
+SERVE_LOGITS_NOISE_FACTOR = {"zamba2-2.7b": 2.0}
+#: zamba2's seeded lora_b, N(0, LORA_B_STD^2): the merged LoRA term
+#: lora_a @ lora_b then has 8 x 0.02 = 0.16 of in_proj's std
+LORA_B_STD = 0.02
 #: small reduced model (f32) on the card vs the CPU: f32 sum-order only
 SMALL_TOL = 1e-4
 SLOTS, MAX_NEW, N_REQUESTS = 4, 16, 6
-#: mamba2-370m serve: one of the six prompts is this long, so the scan
-#: crosses two chunk boundaries of 128 and pads the third chunk on the card
+#: mamba2-370m and zamba2-2.7b serves: one of the six prompts is this
+#: long, so the scan crosses two chunk boundaries of 128 and pads the
+#: third chunk on the card
 LONG_PROMPT = 300
-#: cache positions per slot: qwen3's KV cache; mamba's prompts must fit
-#: under it too (its recurrent state does not grow)
-CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512}
+#: cache positions per slot: qwen3's and zamba2's KV caches; mamba's
+#: prompts must fit under it too (its recurrent state does not grow)
+CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512, "zamba2-2.7b": 512}
+#: quickstart part 2's GEMM
+RUNTIME_GEMM = (256, 192, 96)
+#: the modeled cluster values the runtime must reproduce (``cluster``)
+BENCH_RUNTIME = ROOT / "results" / "BENCH_runtime.json"
 
 
 def log(msg: str) -> None:
@@ -233,23 +263,45 @@ def phase_build():
 
 
 def k1_layer(cfg):
-    """(name, k, n) of the K1 calls of one layer of ``cfg``."""
+    """(name, k, n) of the K1 calls of one layer of ``cfg``; for the
+    hybrid, one mamba layer's (``mamba:``) and one shared block's
+    (``shared:``)."""
     d = cfg.d_model
-    if cfg.family == "ssm":
+    if cfg.ssm is not None:
         from repro_torch.models import ssm
         d_inner, _, _, d_proj = ssm.dims(cfg)
-        return [("in_proj", d, d_proj), ("out_proj", d_inner, d)]
+        mamba = [("in_proj", d, d_proj), ("out_proj", d_inner, d)]
+        if cfg.family == "ssm":
+            return mamba
     hd = cfg.head_dim_
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
-            ("wi", d, cfg.d_ff), ("wg", d, cfg.d_ff), ("mlp.wo", cfg.d_ff, d)]
+    block = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
+             ("wi", d, cfg.d_ff)]
+    if cfg.act in ("swiglu", "geglu"):
+        block.append(("wg", d, cfg.d_ff))
+    block.append(("mlp.wo", cfg.d_ff, d))
+    if cfg.family == "hybrid":
+        return [(f"mamba:{nm}", k, n) for nm, k, n in mamba] \
+            + [(f"shared:{nm}", k, n) for nm, k, n in block]
+    return block
+
+
+def k1_per_forward(cfg):
+    """K1 launches of one forward: every layer's calls; for the hybrid,
+    every mamba layer's two and each shared-block application's."""
+    calls = k1_layer(cfg)
+    if cfg.family != "hybrid":
+        return len(calls) * cfg.n_layers
+    groups = cfg.n_layers // cfg.hybrid.shared_every
+    mamba = sum(nm.startswith("mamba:") for nm, _, _ in calls)
+    return mamba * cfg.n_layers + (len(calls) - mamba) * groups
 
 
 def k1_shapes(cfg):
     """(name, m, k, n) of one layer's K1 calls, per M: one token (m = 1),
-    a decode step of SLOTS slots, a prompt of 64 tokens, and for mamba the
-    LONG_PROMPT-token prefill."""
-    m_values = (1, SLOTS, 64) + ((LONG_PROMPT,) if cfg.family == "ssm"
+    a decode step of SLOTS slots, a prompt of 64 tokens, and for the SSM
+    and hybrid models the LONG_PROMPT-token prefill."""
+    m_values = (1, SLOTS, 64) + ((LONG_PROMPT,) if cfg.ssm is not None
                                  else ())
     return [(nm, m, k, n) for m in m_values for nm, k, n in k1_layer(cfg)]
 
@@ -309,7 +361,7 @@ def phase_kernels(cfgs):
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         records.append(rec)
-        log(f"[kernels] ame_gemm {model} {nm:8s} (m,k,n)=({m},{k},{n}) "
+        log(f"[kernels] ame_gemm {model} {nm:15s} (m,k,n)=({m},{k},{n}) "
             f"{rec['dtype']} {var}: max_abs_err={err:.3g} (atol {atol}, "
             f"rtol {rtol}) {'ok' if ok else 'FAIL'} | device: kernel "
             f"{rec['device_ms']:.4f} ms, torch.matmul "
@@ -319,14 +371,18 @@ def phase_kernels(cfgs):
             f"{rec['library_host_us']:.1f} us | bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     for cfg in cfgs:
-        for m in sorted({r["m"] for r in records if r["model"] == cfg.name}):
+        for m, part in sorted({(r["m"], r["name"].partition(":")[0]
+                                if ":" in r["name"] else "layer")
+                               for r in records if r["model"] == cfg.name}):
             layer = [r for r in records
-                     if r["model"] == cfg.name and r["m"] == m]
+                     if r["model"] == cfg.name and r["m"] == m
+                     and r["name"].startswith(part + ":" if part != "layer"
+                                              else "")]
             tot = {key: sum(r[key] for r in layer)
                    for key in ("device_ms", "library_device_ms", "ms",
                                "plain_ms", "library_ms", "bound_ms",
                                "host_us", "library_host_us")}
-            log(f"[kernels] ame_gemm {cfg.name} layer ({len(layer)} calls) "
+            log(f"[kernels] ame_gemm {cfg.name} {part} ({len(layer)} calls) "
                 f"m={m}: device kernel {tot['device_ms']:.4f} ms, "
                 f"torch.matmul {tot['library_device_ms']:.4f} ms | events "
                 f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms,"
@@ -390,33 +446,37 @@ def _model_layout(bsz, t, cfg, gen, dev):
     return xdt.transpose(1, 2), la, b, c
 
 
-def phase_ssd(cfg):
+def phase_ssd(cfgs):
     """K4 against its plain version; returns per-shape records.  "main"
-    cases are contiguous (BH,T,.) operands at the serve's widths, "layout"
-    cases the serve's own strided views (:func:`_model_layout`), held
-    against ``ref.ssd_chunked4`` on contiguous copies."""
+    cases are contiguous (BH,T,.) operands at each model's serve widths,
+    "layout" cases the serve's own strided views (:func:`_model_layout`),
+    held against ``ref.ssd_chunked4`` on contiguous copies."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as k4
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    s = cfg.ssm
-    bh = s.expand * cfg.d_model // s.head_dim          # one sequence's heads
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("test", shape, dt, dt) for dt in (f32, bf16)
+    cases = [("test", None, shape, dt, dt) for dt in (f32, bf16)
              for shape in ((2, 64, 16, 8, 16), (1, 100, 32, 16, 32),
                            (3, 33, 8, 4, 16), (1, 16, 8, 8, 16))]
-    cases += [("impulse", (1, 64, 4, 4, 16), f32, f32)]
-    cases += [("main", (bh, t, s.head_dim, s.d_state, s.chunk), f32, bf16)
-              for t in (37, 64, LONG_PROMPT, 2048)]
-    cases += [("layout", (bsz * bh, t, s.head_dim, s.d_state, s.chunk), f32,
-               bf16) for bsz, t in ((1, LONG_PROMPT), (2, 64))]
+    cases += [("impulse", None, (1, 64, 4, 4, 16), f32, f32)]
+    for cfg in cfgs:
+        s = cfg.ssm
+        bh = s.expand * cfg.d_model // s.head_dim     # one sequence's heads
+        cases += [("main", cfg, (bh, t, s.head_dim, s.d_state, s.chunk),
+                   f32, bf16) for t in (37, 64, LONG_PROMPT, 2048)]
+        cases += [("layout", cfg, (bsz * bh, t, s.head_dim, s.d_state,
+                                   s.chunk), f32, bf16)
+                  for bsz, t in ((1, LONG_PROMPT), (2, 64))]
     records = []
-    for kind, (rows, t, p, n, chunk), xdt, bdt in cases:
+    for kind, cfg, (rows, t, p, n, chunk), xdt, bdt in cases:
         plain = ref.ssd_chunked
         bc_rows = None
         if kind == "layout":
+            s = cfg.ssm
+            bh = s.expand * cfg.d_model // s.head_dim
             x, la, b, c = _model_layout(rows // bh, t, cfg, gen, dev)
             bc_rows = rows // bh
             plain = lambda *a, chunk: ref.ssd_chunked4(  # noqa: E731
@@ -462,15 +522,16 @@ def phase_ssd(cfg):
         bound_ms, bound_by = k4_bound(rows, t, p, n, chunk,
                                       x.element_size(), b.element_size(),
                                       bc_rows)
-        rec = dict(kind=kind, bh=rows, t=t, p=p, n=n, chunk=chunk,
-                   variant=var,
+        rec = dict(kind=kind, model=cfg.name if cfg else "test", bh=rows,
+                   t=t, p=p, n=n, chunk=chunk, variant=var,
                    x_dtype=str(xdt).removeprefix("torch."),
                    bc_dtype=str(bdt).removeprefix("torch."),
                    max_abs_err=err, atol=atol, rtol=rtol, ok=ok, ms=ms,
                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
         records.append(rec)
-        log(f"[ssd] ssd_scan {kind:7s} (bh,t,p,n,chunk)={(rows, t, p, n, chunk)} "
+        log(f"[ssd] ssd_scan {kind:7s} {rec['model']} "
+            f"(bh,t,p,n,chunk)={(rows, t, p, n, chunk)} "
             f"x {rec['x_dtype']} b/c {rec['bc_dtype']} {var}"
             f": max_abs_err={err:.3g} "
             f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'} | kernel "
@@ -864,6 +925,83 @@ def phase_engine(dev):
         raise AssertionError("the engine's numerics differ on the card")
 
 
+def phase_runtime(dev, card_name):
+    """Quickstart part 2 through repro_torch.runtime: pim_gemm numeric on
+    the card (tensor operands there) against the same calls on the CPU
+    (numpy operands), bit for bit, with byte-identical command traces; the
+    BENCH_runtime.json cluster values, exactly.  Cycles are modeled
+    Aquabolt-XL cycles, independent of the machine."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.runtime import PIMRuntime, emit_trace, pim_gemm
+
+    rng = np.random.default_rng(0)
+    m, k, n = RUNTIME_GEMM
+    a = (rng.standard_normal((m, k)) * 0.2).astype(np.float16)
+    b = (rng.standard_normal((k, n)) * 0.2).astype(np.float16)
+    on_card = (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    outs = {}
+    for ch in (1, 2):
+        runs = {}
+        for where, device, ops in (("cpu", "cpu", (a, b)),
+                                   ("card", dev, on_card)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt = PIMRuntime(channels=ch, device=device)
+            out, rep = rt.gemm(*ops)
+            torch.cuda.synchronize()
+            runs[where] = dict(out=out, rep=rep, wall=time.perf_counter()
+                               - t0, trace=emit_trace(rt.stack))
+        cpu, card = runs["cpu"], runs["card"]
+        same = card["out"].device == on_card[0].device \
+            and card["out"].dtype == torch.float16 \
+            and torch.equal(card["out"].cpu().view(torch.int16),
+                            cpu["out"].view(torch.int16))
+        same_rep = dataclasses.asdict(card["rep"]) \
+            == dataclasses.asdict(cpu["rep"])
+        same_trace = card["trace"] == cpu["trace"]
+        outs[ch] = cpu["out"]
+        log(f"[runtime] pim_gemm {m}x{k}x{n}, {ch} pseudo-channel(s): "
+            f"{card['rep'].makespan_cycles:.0f} modeled cycles, "
+            f"{card['rep'].flop_per_cycle:.1f} FLOP/cycle; card vs CPU: "
+            f"outputs {'bit-exact' if same else 'DIFFER'}, reports "
+            f"{'equal' if same_rep else 'DIFFER'}, trace "
+            f"{'byte-identical' if same_trace else 'DIFFERS'} "
+            f"({len(card['trace'])} bytes); wall {1e3 * card['wall']:.1f} "
+            f"ms on {card_name} (numeric run), {1e3 * cpu['wall']:.1f} ms on "
+            f"the CPU")
+        if not (same and same_rep and same_trace):
+            raise AssertionError("the runtime on the card differs from the "
+                                 "CPU")
+    if not torch.equal(outs[1].view(torch.int16), outs[2].view(torch.int16)):
+        raise AssertionError("2 pseudo-channels differ from 1")
+    z = lambda *shape: np.broadcast_to(np.float16(0), shape)   # noqa: E731
+    got = {"parity_makespan": {
+        f"{st}x{c}": pim_gemm(z(512, 512), z(512, 512), channels=c,
+                              placement="2d-block", execute=False,
+                              stacks=st, device=dev)[1].makespan_cycles
+        for st, c in ((1, 16), (2, 8), (4, 4))}}
+    for key, (pm, pk, pn), placement in (
+            ("gemm_eff_4stack", (2048, 4096, 2048), "2d-block"),
+            ("gemv_eff_4stack", (151936, 8192, 1), "balanced")):
+        mk = [pim_gemm(z(pm, pk), z(pk, pn), channels=16,
+                       placement=placement, execute=False, stacks=st,
+                       device=dev)[1].cluster_makespan_cycles
+              for st in (1, 4)]
+        got[key] = round(mk[0] / mk[1] / 4, 6)
+    want = json.loads(BENCH_RUNTIME.read_text())["cluster"]
+    log(f"[runtime] cluster: {got} [results/BENCH_runtime.json: "
+        f"parity_makespan {want['parity_makespan']}, gemm_eff_4stack "
+        f"{want['gemm_eff_4stack']}, gemv_eff_4stack "
+        f"{want['gemv_eff_4stack']}]")
+    if set(got["parity_makespan"].values()) != {want["parity_makespan"]} \
+            or any(got[key] != want[key]
+                   for key in ("gemm_eff_4stack", "gemv_eff_4stack")):
+        raise AssertionError("the runtime's cluster values differ from "
+                             "results/BENCH_runtime.json")
+
+
 def phase_ops(dev):
     """This slice's path, through the ops entry point: ops.elementwise and
     ops.attention at the model shapes, the kernel counts set to 0 just
@@ -912,17 +1050,25 @@ def phase_ops(dev):
 
 
 def _prompts(cfg):
-    """Six seeded prompts of 8-64 tokens; for mamba2-370m the last is
-    LONG_PROMPT tokens, so the server runs the multi-chunk scan."""
+    """Six seeded prompts of 8-64 tokens; for the models with a scan
+    (mamba2-370m, zamba2-2.7b) the last is LONG_PROMPT tokens, so the
+    server runs the multi-chunk scan."""
     import numpy as np
     rng = np.random.default_rng(0)
     prompts = []
     for u in range(N_REQUESTS):
         n = int(rng.integers(8, 65))
-        if cfg.family == "ssm" and u == N_REQUESTS - 1:
+        if cfg.ssm is not None and u == N_REQUESTS - 1:
             n = LONG_PROMPT
         prompts.append(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
     return prompts
+
+
+def fill_lora(params, gen):
+    """zamba2's ``lora_b`` starts at zero, as in the reference; seeded
+    values make the per-application LoRA merge matter."""
+    if "lora_b" in params["stack"]:
+        params["stack"]["lora_b"].normal_(0.0, LORA_B_STD, generator=gen)
 
 
 def phase_serve(cfg, dev):
@@ -934,11 +1080,12 @@ def phase_serve(cfg, dev):
     from repro_torch.models import model as lm
     from repro_torch.serve.loop import Request, Server
 
-    ssm = cfg.family == "ssm"
+    scan = cfg.ssm is not None
     cache_len = CACHE_LEN[cfg.name]
     t0 = time.perf_counter()
-    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    fill_lora(params, gen)
     srv = Server(cfg, params, slots=SLOTS, cache_len=cache_len,
                  backend="kernel", device=dev)
     torch.cuda.synchronize()
@@ -964,9 +1111,9 @@ def phase_serve(cfg, dev):
     k4_variants = dict(k4.launches_by_variant)
     tokens = sum(len(r.out_tokens) for r in done)
     forwards = srv.prefills + srv.decode_steps
-    want = {"ame_gemm": len(k1_layer(cfg)) * cfg.n_layers * forwards,
+    want = {"ame_gemm": k1_per_forward(cfg) * forwards,
             "ssd_scan": cfg.n_layers * sum(len(p) > 1 for p in prompts)
-            if ssm else 0}
+            if scan else 0}
     log(f"[serve] {len(done)} requests, {tokens} tokens, {srv.prefills} "
         f"prefills (prompts {sorted(len(p) for p in prompts)}) + "
         f"{srv.decode_steps} decode steps in {wall:.3f}s wall "
@@ -978,7 +1125,7 @@ def phase_serve(cfg, dev):
     if len(done) != N_REQUESTS:
         raise AssertionError(f"{len(done)} of {N_REQUESTS} requests served")
     if launches != want or launches["ame_gemm"] == 0 \
-            or (ssm and launches["ssd_scan"] == 0):
+            or (scan and launches["ssd_scan"] == 0):
         raise AssertionError("the main path did not go through the kernels "
                              "once per projection / per layer's scan")
     if k4_variants["fma"]:
@@ -1009,24 +1156,33 @@ def phase_serve(cfg, dev):
     ok32 = bool(((lk - lt).abs() <= atol + rtol * lt.abs()).all())
     lk, lt = logits["bf16", "kernel"], logits["bf16", "torch"]
     err = float((lk - lt).abs().max())
-    tol = SERVE_LOGITS_ATOL[cfg.name]
     noise = float((lt - logits["f32", "torch"]).abs().max())
+    if cfg.name in SERVE_LOGITS_NOISE_FACTOR:
+        tol = SERVE_LOGITS_NOISE_FACTOR[cfg.name] * noise
+        rule = (f"limit {SERVE_LOGITS_NOISE_FACTOR[cfg.name]} x the torch "
+                f"bf16-vs-f32 distance")
+    else:
+        tol, rule = SERVE_LOGITS_ATOL[cfg.name], "fixed limit"
+    kernel_noise = float((lk - logits["f32", "torch"]).abs().max())
     log(f"[serve] {len(prompt)}-token prefill logits kernel vs torch: f32 "
         f"compute max_abs_err={err32:.4g} (atol {atol}, rtol {rtol}) "
         f"{'ok' if ok32 else 'FAIL'}; bf16 compute max_abs_err={err:.4g} "
-        f"(atol {tol}) {'ok' if err <= tol else 'FAIL'}; logits max |x| "
-        f"{float(lt.abs().max()):.3g}; argmax {int(lk.argmax())} vs "
-        f"{int(lt.argmax())}; diagnostic: torch bf16 vs f32 compute "
-        f"{noise:.4g}")
-    if not ok32 or err > tol:
+        f"(atol {tol:.4g}, {rule}) {'ok' if err <= tol else 'FAIL'}; "
+        f"logits max |x| {float(lt.abs().max()):.3g}; argmax "
+        f"{int(lk.argmax())} vs {int(lt.argmax())}; torch bf16 vs f32 "
+        f"compute {noise:.4g}, kernel bf16 vs torch f32 {kernel_noise:.4g}")
+    if not ok32 or not err <= tol:
         raise AssertionError("kernel and torch backends disagree")
     phase_breakdown(cfg, srv.params, dev)
-    if ssm:
+    if scan:
         phase_prefill_breakdown(cfg, srv.params, dev, prompt)
+    if cfg.family == "hybrid":
+        phase_lora_merge(cfg, srv.params)
     del params, srv
     torch.cuda.empty_cache()
     return dict(requests=len(done), tokens=tokens, wall_s=wall,
-                params=n_params, launches=launches)
+                params=n_params, launches=launches, bf16_err=err,
+                bf16_limit=tol)
 
 
 def _profile(fn):
@@ -1129,6 +1285,37 @@ def phase_prefill_breakdown(cfg, params, dev, prompt, steps=3):
                  step_ms, host_ms, steps, kernels, n_launch)
 
 
+def phase_lora_merge(cfg, params, steps=5):
+    """zamba2's per-application LoRA merge on its own: the (2d, d) merged
+    input projection of every group, as one forward builds them (a plain
+    product, as in the reference, not K1): device time by CUDA-graph
+    replay, events, and the profiler's kernels."""
+    from repro_torch.launch import hw
+    from repro_torch.models.transformer import lora_merged_in_proj
+
+    cd = cfg.compute_dtype_()
+    groups = cfg.n_layers // cfg.hybrid.shared_every
+
+    def merge():
+        for g in range(groups):
+            lora_merged_in_proj(params["stack"], g, cfg, cd)
+    step_ms, _ = _event_ms(merge, steps)
+    dev_ms = device_ms(merge, [()], 1)
+    kernels, n_launch = _profile(merge)
+    d = cfg.d_model
+    # each merge writes the (2d, d) product, reads it and w, writes the sum
+    nbytes = groups * 4 * (2 * d * d) * 2
+    log(f"[breakdown] {cfg.name} LoRA merge, {groups} groups of (2d, d) = "
+        f"({2 * d}, {d}) {str(cd).removeprefix('torch.')}: device "
+        f"{dev_ms:.3f} ms (CUDA-graph replay), events {step_ms:.3f} ms, "
+        f"{n_launch} launches, profiled busy {sum(kernels.values()):.3f} "
+        f"ms; the four (2d, d) passes, {nbytes / 1e9:.3f} GB, take "
+        f"{1e3 * nbytes / hw.HBM_BW:.3f} ms at the card's "
+        f"{hw.HBM_BW / 1e12:.2f} TB/s")
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        log(f"[breakdown]   LoRA merge kernel {v:8.3f} ms  {k[:100]}")
+
+
 def phase_small_reference(cfg_full, dev, prompt_t):
     """Reduced model (f32) on the card, kernel backend, against the same
     parameters on the CPU with the plain backend: prefill + 3 decodes."""
@@ -1137,7 +1324,9 @@ def phase_small_reference(cfg_full, dev, prompt_t):
     from repro_torch.models import model as lm
 
     cfg = cfg_full.reduced()
-    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    cpu = lm.init(cfg, gen, device="cpu")
+    fill_lora(cpu, gen)
     card = _to(cpu, dev)
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size,
                                              (2, prompt_t))
@@ -1193,8 +1382,8 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     total = {key: sum(r[key] for r in layer)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "device_ms", "library_device_ms")}
-    main = [r for r in k4_records
-            if r["kind"] == "main" and r["t"] == LONG_PROMPT][0]
+    main = [r for r in k4_records if r["kind"] == "main"
+            and r["model"] == "mamba2-370m" and r["t"] == LONG_PROMPT][0]
     by_path = {name: {model: s["launches"][name]
                       for model, s in serves.items()}
                for name in ("ame_gemm", "ssd_scan")}
@@ -1273,17 +1462,19 @@ def main() -> int:
     import torch
     from repro_torch.configs import get
     qwen, mamba = get("qwen3-1.7b"), get("mamba2-370m")
+    zamba = get("zamba2-2.7b")
     phase_build()
     dev = torch.device("cuda", torch.cuda.current_device())
-    k1_records = phase_kernels([qwen, mamba])
-    k4_records = phase_ssd(mamba)
+    k1_records = phase_kernels([qwen, mamba, zamba])
+    k4_records = phase_ssd([mamba, zamba])
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
     phase_engine(dev)
+    phase_runtime(dev, name)
     ops_launches = phase_ops(dev)
     torch.cuda.empty_cache()
     serves = {}
-    for cfg, small_prompt in ((qwen, 16), (mamba, 40)):
+    for cfg, small_prompt in ((qwen, 16), (mamba, 40), (zamba, 40)):
         serves[cfg.name] = phase_serve(cfg, dev)
         phase_small_reference(cfg, dev, small_prompt)
     check_bounds(k1_records + k4_records + k2_records + k3_records)

@@ -1,8 +1,9 @@
 """Parameters of the JAX reference, as numpy arrays, into the port.
 
 The port keeps the reference's parameter tree and layouts (layer-stacked
-leaves with a leading L axis under ``stack/dense_stack`` or
-``stack/ssm_stack``, dense weights ``(d_in, d_out)``), so the conversion
+leaves with a leading L axis under ``stack/dense_stack``,
+``stack/ssm_stack`` or the hybrid's ``stack/groups``, ``stack/shared``
+and ``stack/tail``, dense weights ``(d_in, d_out)``), so the conversion
 map is the identity on paths: every leaf is copied, after its path and
 shape are checked against the port's own ``init`` on the meta device,
 and takes that leaf's dtype (the SSM's f32 ``a_log``, ``d_skip`` and

@@ -1,8 +1,9 @@
 """The public model facade: init / make_caches / prefill / decode_step.
 
-Port of ``repro.models.model`` for the dense and SSM text families.  The
-parameter tree has the reference's structure and layout
-(``stack/dense_stack`` or ``stack/ssm_stack`` with a leading L axis,
+Port of ``repro.models.model`` for the dense, SSM and hybrid text
+families.  The parameter tree has the reference's structure and layout
+(``stack/dense_stack``, ``stack/ssm_stack`` or the hybrid's
+``stack/{groups,shared,lora_a,lora_b,tail}`` with a leading L axis,
 ``final_norm``, ``embed``, ``head`` when untied), so ``models.convert``
 maps reference parameters over one to one.
 
@@ -29,6 +30,8 @@ def _family_fns(cfg: ArchConfig):
     """``(stack_init, make_caches, stack_apply)`` of the family."""
     if cfg.family == "ssm":
         return tf.ssm_stack_init, tf.ssm_make_states, tf.ssm_stack_apply
+    if cfg.family == "hybrid":
+        return tf.hybrid_init, tf.hybrid_make_caches, tf.hybrid_apply
     return tf.decoder_init, tf.decoder_make_caches, tf.decoder_apply
 
 
@@ -99,8 +102,9 @@ def _logits(p, h_last, cfg: ArchConfig) -> torch.Tensor:
 
 
 def make_caches(cfg: ArchConfig, batch: int, length: int, device=None):
-    """KV caches of ``length`` positions (dense) or recurrent states
-    (ssm), for ``batch`` sequences."""
+    """KV caches of ``length`` positions (dense), recurrent states (ssm)
+    or both (hybrid: every mamba layer's state, one KV cache per shared
+    block application), for ``batch`` sequences."""
     _check(cfg)
     return _family_fns(cfg)[1](cfg, batch, length, cfg.compute_dtype_(),
                                resolve_device(device))

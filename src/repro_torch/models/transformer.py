@@ -1,21 +1,24 @@
-"""Blocks and stacks: the dense decoder transformer and the SSM stack.
+"""Blocks and stacks: the dense decoder transformer, the SSM stack and the
+Zamba2 hybrid.
 
-Port of ``repro.models.transformer`` for the dense and SSM families.
-Parameters and caches keep the reference's layer-stacked layout (a
-leading L axis under ``dense_stack`` / ``ssm_stack``); a Python loop over
-layers replaces ``lax.scan``, and each layer sees views of the stacked
-tensors, so cache and state writes land in place.  MoE, MLA and hybrid
-stacks wait for their slices.
+Port of ``repro.models.transformer`` for the dense, SSM and hybrid
+families.  Parameters and caches keep the reference's layer-stacked
+layout (a leading L axis under ``dense_stack`` / ``ssm_stack`` /
+``groups``); a Python loop over layers replaces ``lax.scan``, and each
+layer sees views of the stacked tensors, so cache and state writes land
+in place.  MoE and MLA stacks wait for their slices.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    TORCH, Backend, apply_norm, mlp, mlp_init, norm_init,
+    TORCH, Backend, apply_norm, dense_init, mlp, mlp_init, norm_init, normal,
 )
 
 _PENDING = ("the {what} stack is not ported yet (ROADMAP.md, queue 1, "
@@ -25,7 +28,7 @@ _PENDING = ("the {what} stack is not ported yet (ROADMAP.md, queue 1, "
 def check_family(cfg: ArchConfig) -> None:
     """Raise for the families this slice does not run."""
     what = ("moe" if cfg.moe is not None else "mla" if cfg.mla is not None
-            else cfg.family if cfg.family == "hybrid" else None)
+            else None)
     if what is not None:
         raise NotImplementedError(_PENDING.format(what=what))
 
@@ -116,15 +119,110 @@ def ssm_stack_apply(p, h, cfg: ArchConfig, *, positions=None,
                     causal=True):
     """Returns ``(h, caches)``; the states in ``caches`` are overwritten
     in place with each layer's new state."""
-    stack = p["ssm_stack"]
+    states = caches["ssm_stack"] if caches is not None else None
     for i in range(cfg.n_layers):
-        lp = layer(stack, i)
-        st = layer(caches["ssm_stack"], i) if caches is not None else None
-        x = apply_norm(lp["ln"], h, cfg.norm_eps)
-        y, ns = ssm_mod.mamba_apply(lp["mamba"], x, cfg, state=st,
-                                    backend=backend)
-        h = h + y
-        if st is not None:
-            st["conv"].copy_(ns["conv"])
-            st["ssm"].copy_(ns["ssm"])
+        h = _mamba_layer(p["ssm_stack"], states, i, h, cfg, backend)
+    return h, caches
+
+
+def _mamba_stack_init(gen, cfg: ArchConfig, dtype, device, n: int) -> Dict:
+    return {"ln": norm_init(cfg.d_model, dtype, device, cfg.norm, n),
+            "mamba": ssm_mod.mamba_init(gen, cfg, dtype, device, layers=n)}
+
+
+def _mamba_layer(stack, states, i: int, h, cfg: ArchConfig, backend):
+    """Layer ``i`` of a stacked mamba tree on ``h`` (pre-norm, residual);
+    its state in ``states`` (or none) is overwritten in place."""
+    lp = layer(stack, i)
+    st = layer(states, i) if states is not None else None
+    x = apply_norm(lp["ln"], h, cfg.norm_eps)
+    y, ns = ssm_mod.mamba_apply(lp["mamba"], x, cfg, state=st,
+                                backend=backend)
+    if st is not None:
+        st["conv"].copy_(ns["conv"])
+        st["ssm"].copy_(ns["ssm"])
+    return h + y
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid: mamba backbone + shared attention blocks every k layers
+# ---------------------------------------------------------------------------
+
+
+def hybrid_init(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    """``groups`` (n_layers // shared_every groups of mamba layers, one
+    stack), ``shared`` (n_shared_blocks blocks, each with its (2d, d)
+    input projection), the per-application LoRA pair ``lora_a`` /
+    ``lora_b`` (zero at init, as in the reference) and, when shared_every
+    does not divide n_layers, the ``tail`` mamba layers."""
+    hy, d = cfg.hybrid, cfg.d_model
+    groups, tail = divmod(cfg.n_layers, hy.shared_every)
+    ns = hy.n_shared_blocks
+    p = {
+        "groups": _mamba_stack_init(gen, cfg, dtype, device,
+                                    groups * hy.shared_every),
+        "shared": {"in_proj": dense_init(gen, 2 * d, d, dtype, device,
+                                         layers=ns),
+                   "block": block_init(gen, cfg, dtype, device, layers=ns)},
+        "lora_a": normal((groups, 2 * d, hy.lora_rank), gen, device, dtype,
+                         (2 * d) ** -0.5),
+        "lora_b": torch.zeros((groups, hy.lora_rank, d), dtype=dtype,
+                              device=device),
+    }
+    if tail:
+        p["tail"] = _mamba_stack_init(gen, cfg, dtype, device, tail)
+    return p
+
+
+def hybrid_make_caches(cfg: ArchConfig, batch: int, length: int, dtype,
+                       device) -> Dict:
+    """Recurrent states of every mamba layer and one KV cache per group
+    (each application of a shared block keeps its own)."""
+    every = cfg.hybrid.shared_every
+    groups, tail = divmod(cfg.n_layers, every)
+    c = {"groups": ssm_mod.mamba_make_state(cfg, batch, dtype, device,
+                                            layers=groups * every),
+         "shared_kv": attn_mod.make_cache(cfg, batch, length, dtype, device,
+                                          layers=groups)}
+    if tail:
+        c["tail"] = ssm_mod.mamba_make_state(cfg, batch, dtype, device,
+                                             layers=tail)
+    return c
+
+
+def lora_merged_in_proj(p, g: int, cfg: ArchConfig, dtype) -> torch.Tensor:
+    """Group ``g``'s shared input projection ``w + lora_a[g] @ lora_b[g]``
+    (2d, d) in ``dtype``, every operand cast first, as in the reference:
+    a (2d, d) product and sum built anew for every application."""
+    w = p["shared"]["in_proj"]["w"][g % cfg.hybrid.n_shared_blocks]
+    return w.to(dtype) + p["lora_a"][g].to(dtype) @ p["lora_b"][g].to(dtype)
+
+
+def hybrid_apply(p, h, cfg: ArchConfig, *, positions,
+                 caches: Optional[Dict] = None, backend: Backend = TORCH,
+                 causal=True):
+    """Group ``g`` runs mamba layers ``g*every .. g*every+every-1``, then
+    shared block ``g % n_shared_blocks`` once on ``[h, e0] @ (w + A_g B_g)``
+    (e0 the original embeddings; a plain product, as in the reference,
+    whose merged projection is not ``dense()``), with the residual on the
+    block's delta.  The tail runs last.  Returns ``(h, caches)``; caches
+    are updated in place."""
+    hy = cfg.hybrid
+    every = hy.shared_every
+    e0 = h
+    states = caches["groups"] if caches is not None else None
+    for g in range(cfg.n_layers // every):
+        for i in range(g * every, (g + 1) * every):
+            h = _mamba_layer(p["groups"], states, i, h, cfg, backend)
+        cat = torch.cat([h, e0.expand(h.shape)], -1)
+        xin = cat @ lora_merged_in_proj(p, g, cfg, cat.dtype)
+        block = layer(p["shared"]["block"], g % hy.n_shared_blocks)
+        kv = layer(caches["shared_kv"], g) if caches is not None else None
+        y, _ = block_apply(block, xin, cfg, positions=positions, cache=kv,
+                           backend=backend, causal=True)
+        h = h + (y - xin)                  # residual on the block's delta
+    if "tail" in p:
+        states = caches["tail"] if caches is not None else None
+        for i in range(cfg.n_layers % every):
+            h = _mamba_layer(p["tail"], states, i, h, cfg, backend)
     return h, caches

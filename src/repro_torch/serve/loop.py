@@ -3,8 +3,8 @@
 Port of ``repro.serve.loop.Server``.  A fixed decode batch of ``slots``;
 finished sequences free their slot and the next queued request is
 prefilled into it.  Greedy sampling (argmax).  The decode step runs over
-the whole slot batch and updates the KV cache (dense) or the recurrent
-state (ssm) in place.
+the whole slot batch and updates the KV cache (dense), the recurrent
+state (ssm) or both (hybrid) in place.
 
 Every dense projection and the SSM prefill scan go through ``backend``:
 ``"kernel"`` (default) launches the hand-written ``ame_gemm`` and
@@ -275,7 +275,8 @@ def _pct_summary(h: Histogram) -> Dict:
 def _splice(full, one, slot: int) -> None:
     """Copy the single-sequence prefill cache ``one`` into batch slot
     ``slot`` of the server cache ``full``, in place.  Cache leaves put
-    batch at axis 1 (layer-stacked)."""
+    batch at axis 1 (layer-stacked), the hybrid's mixed {groups,
+    shared_kv, tail} cache included."""
     for k, v in full.items():
         if isinstance(v, dict):
             _splice(v, one[k], slot)

@@ -1,8 +1,10 @@
 """K1 (ame_gemm), K2 (ame_elementwise), K3 (flash_attention) and K4
 (ssd_scan) on the card: built from csrc/, held against their plain
-versions, launches counted.  Marked ``gpu``: every test skips with a reason
-where there is no CUDA device (decided inside the fixture, never while the
-module is imported).  On the card: ``python -m pytest -m gpu tests``.
+versions, launches counted; and the PIM runtime's numerics on the card
+bit for bit with the same calls on the CPU.  Marked ``gpu``: every test
+skips with a reason where there is no CUDA device (decided inside the
+fixture, never while the module is imported).  On the card:
+``python -m pytest -m gpu tests``.
 """
 import pytest
 import torch
@@ -98,6 +100,27 @@ def test_mma_kernel_at_serving_shapes(cuda, m, k, n, dtype, out):
     assert got.dtype == (out or dtype) and got.shape == (m, n)
     torch.testing.assert_close(got.float(), ref.gemm(a, b, out).float(),
                                **tol(out or dtype, k))
+
+
+#: zamba2-2.7b: the mamba layer's in_proj and out_proj; the shared
+#: block's q/k/v/o, its MLP's wi and wo (gelu, no gate)
+ZAMBA2_KN = [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 10240),
+             (10240, 2560)]
+
+
+@pytest.mark.parametrize("k,n", ZAMBA2_KN)
+@pytest.mark.parametrize("m", [1, 4, 64, 300])
+def test_mma_kernel_at_zamba2_shapes(cuda, m, k, n):
+    """zamba2-2.7b's projections, as served in bf16, take the
+    tensor-core variant and match the plain version."""
+    a, b = _pair(m, k, n, torch.bfloat16, cuda, seed=m)
+    assert k1.variant(a, b) == "mma"
+    before = k1.launches
+    got = k1.ame_gemm(a, b)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1 and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), ref.gemm(a, b).float(),
+                               **tol(torch.bfloat16, k))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
@@ -316,6 +339,55 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
         k4.ssd_scan(xm, lm, bm, cm, variant="mma")     # P % 16 != 0
     with pytest.raises(ValueError, match="variant must be"):
         k4.ssd_scan(xm, lm, bm, cm, variant="wgmma")
+
+
+#: zamba2-2.7b's scan: 80 heads of P = 64 a sequence, N = 64, chunk 128
+ZAMBA2_SSD = dict(h=80, p=64, n=64, chunk=128)
+
+
+@pytest.mark.parametrize("t", [37, 64, 300, 2048])
+def test_ssd_mma_at_zamba2_shapes(cuda, t):
+    """K4 at zamba2-2.7b's widths, contiguous (80, T, 64, 64) operands:
+    f32 x, bf16 b/c, the mma variant."""
+    z = ZAMBA2_SSD
+    x, la, b, c = _ssd_inputs(z["h"], t, z["p"], z["n"], torch.float32,
+                              torch.bfloat16, cuda, seed=t)
+    assert k4.variant(x, b, c) == "mma"
+    before = dict(k4.launches_by_variant)
+    got = k4.ssd_scan(x, la, b, c, chunk=z["chunk"])
+    torch.cuda.synchronize()
+    assert k4.launches_by_variant["mma"] == before["mma"] + 1
+    torch.testing.assert_close(
+        got, ref.ssd_chunked(x, la, b, c, chunk=z["chunk"]),
+        **SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("bsz,t", [(1, 300), (2, 64), (1, 2048)])
+def test_ssd4_mma_on_zamba2_serve_views(cuda, bsz, t):
+    """ops.ssd4 on the views a full-width zamba2 mamba layer hands it in
+    bf16 compute: x*dt f32 seen (B,80,T,64) out of (B,T,80,64), b and c
+    columns of one bf16 (B,T,5248) conv output expanded over the 80 heads;
+    held against ref.ssd_chunked4 on contiguous copies."""
+    z = ZAMBA2_SSD
+    h, p, n = z["h"], z["p"], z["n"]
+    g = torch.Generator(device=cuda).manual_seed(t)
+    conv = (torch.randn(bsz, t, h * p + 2 * n, generator=g, device=cuda)
+            * 0.5).bfloat16()
+    xs, bs, cs = torch.split(conv, [h * p, n, n], -1)
+    dt = torch.rand(bsz, t, h, generator=g, device=cuda) * 0.5 + 0.05
+    x = (xs.reshape(bsz, t, h, p) * dt[..., None]).transpose(1, 2)
+    la = -(dt * 0.4).transpose(1, 2).contiguous()
+    b, c = [v.reshape(bsz, t, 1, n).expand(bsz, t, h, n).transpose(1, 2)
+            for v in (bs, cs)]
+    assert b.stride() == (t * (h * p + 2 * n), 0, h * p + 2 * n, 1)
+    assert k4.variant(x, b, c) == "mma"
+    before = dict(k4.launches_by_variant)
+    got = ops.ssd4(x, la, b, c, use_kernel=True, chunk=z["chunk"])
+    torch.cuda.synchronize()
+    assert k4.launches_by_variant["mma"] == before["mma"] + 1
+    want = ref.ssd_chunked4(*[v.contiguous() for v in (x, la, b, c)],
+                            chunk=z["chunk"])
+    torch.testing.assert_close(got, want, **SSD_TOL[torch.float32])
 
 
 def test_ssd_smem_claim_matches_the_source_and_fits(cuda):
@@ -573,3 +645,39 @@ def test_attention_smem_claim_matches_the_source_and_fits(cuda):
                 assert k3.smem_bytes(bq, bk, d, dtype) <= hw.SMEM_PER_BLOCK
     assert lib.flash_attention_smem_bytes(64, 64, 257, 0) == 0
     assert lib.flash_attention_smem_bytes(16, 16, 64, 1) == 0
+
+
+# ---------------------------------------------------------------------------
+# the PIM runtime: numerics on the card, bit for bit with the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("placement", ["row-striped", "2d-block",
+                                       "balanced"])
+@pytest.mark.parametrize("channels", [1, 2, 16])
+def test_pim_gemm_on_the_card_is_bit_exact_with_the_cpu(cuda, channels,
+                                                        placement):
+    """quickstart's pim_gemm 256x192x96 (and a K-split GEMV under
+    balanced) numeric on the card, against the port on the CPU: float16
+    outputs equal bit for bit, reports and command traces equal."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.runtime import PIMRuntime, emit_trace
+    rng = np.random.default_rng(channels)
+    a = (rng.standard_normal((256, 192)) * 0.2).astype(np.float16)
+    b = (rng.standard_normal((192, 96)) * 0.2).astype(np.float16)
+    x = (rng.standard_normal(192) * 0.2).astype(np.float16)
+    runs = []
+    for device in ("cpu", cuda):
+        rt = PIMRuntime(channels=channels, device=device)
+        out, rep = rt.gemm(a, b, placement=placement)
+        y, rep_v = rt.gemv(a[:128], x, placement=placement)
+        assert out.device.type == torch.device(device).type
+        runs.append((out.cpu(), y.cpu(), dataclasses.asdict(rep),
+                     dataclasses.asdict(rep_v), emit_trace(rt.stack)))
+    (o0, y0, *rest0), (o1, y1, *rest1) = runs
+    assert o1.dtype == y1.dtype == torch.float16
+    assert torch.equal(o0.view(torch.int16), o1.view(torch.int16))
+    assert torch.equal(y0.view(torch.int16), y1.view(torch.int16))
+    assert rest0 == rest1

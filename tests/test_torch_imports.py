@@ -22,7 +22,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.serve.loop" in mods and len(mods) >= 15
     assert {"repro_torch.core.engine", "repro_torch.kernels.elementwise",
-            "repro_torch.kernels.attention"} <= set(mods)
+            "repro_torch.kernels.attention", "repro_torch.runtime.scheduler",
+            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -56,6 +57,21 @@ def test_core_does_not_import_the_model_stack():
             "             if n.startswith(('repro_torch.models', "
             "'repro_torch.serve')))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_runtime_does_not_import_the_model_stack_or_the_kernels():
+    """``repro_torch.runtime``, the multi-channel PIM runtime, sits on the
+    engine (``core``): it imports no model, serving or kernel module."""
+    code = ("import sys, repro_torch.runtime\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.startswith(('repro_torch.models', "
+            "'repro_torch.serve', 'repro_torch.kernels')))\n"
+            "assert not bad, bad\n"
+            "assert 'repro_torch.core.engine' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -15,7 +15,7 @@ import torch
 from repro.configs import get as jget
 from repro.models import model as jlm
 from repro.models.layers import PALLAS, XLA
-from repro_torch.configs import MoEConfig, get
+from repro_torch.configs import MLAConfig, MoEConfig, get
 from repro_torch.models import convert
 from repro_torch.models import model as lm
 
@@ -136,8 +136,8 @@ def test_unported_families_raise():
                                                   d_ff_expert=64))
     with pytest.raises(NotImplementedError, match="moe"):
         lm.init(moe, device="meta")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        lm.make_caches(cfg.replace(family="hybrid"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="mla"):
+        lm.make_caches(cfg.replace(mla=MLAConfig()), 1, 8, device="cpu")
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):

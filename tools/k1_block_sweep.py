@@ -3,8 +3,9 @@
 
     python3 tools/k1_block_sweep.py
 
-For each (m, k, n) of one qwen3-1.7b and one mamba2-370m layer at
-m = 1, 4, 64 and 300 (chip_smoke.k1_shapes), times ``ame_gemm`` in bf16
+For each (m, k, n) of one qwen3-1.7b layer, one mamba2-370m layer and
+one zamba2-2.7b mamba layer and shared block at m = 1, 4, 64 and, for the
+last two, 300 (chip_smoke.k1_shapes), times ``ame_gemm`` in bf16
 at each block of ``ame_gemm.MMA_BLOCKS`` by device time (chip_smoke.
 device_ms: calls replayed from a CUDA graph, operands cycled past L2) and
 marks the block ``default_blocks`` picks with ``*``.  Then sums each
@@ -30,7 +31,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     layers = {}
-    for cfg in (get("qwen3-1.7b"), get("mamba2-370m")):
+    for cfg in (get("qwen3-1.7b"), get("mamba2-370m"), get("zamba2-2.7b")):
         for nm, m, k, n in chip_smoke.k1_shapes(cfg):
             copies = max(1, min(16, -(-4 * 50 * 2 ** 20
                                      // ((m * k + k * n) * 2))))
@@ -44,16 +45,17 @@ def main() -> int:
                     return k1.ame_gemm(a, b, block_m=blk[0], block_n=blk[1],
                                        block_k=blk[2])
                 times[blk] = chip_smoke.device_ms(call, args, 20)
-            layer = layers.setdefault((cfg.name, m), dict(default=0.0,
-                                                          best=0.0))
+            part = nm.partition(":")[0] if ":" in nm else "layer"
+            layer = layers.setdefault((cfg.name, part, m),
+                                      dict(default=0.0, best=0.0))
             layer["default"] += times[pick]
             layer["best"] += min(times.values())
-            print(f"[sweep] {cfg.name} {nm:8s} (m,k,n)=({m},{k},{n}) device "
+            print(f"[sweep] {cfg.name} {nm:15s} (m,k,n)=({m},{k},{n}) device "
                   f"ms: " + ", ".join(f"{blk}{'*' if blk == pick else ''} "
                                       f"{ms:.4f}" for blk, ms in
                                       times.items()), flush=True)
-    for (model, m), layer in layers.items():
-        print(f"[sweep] {model} layer m={m}: default blocks "
+    for (model, part, m), layer in layers.items():
+        print(f"[sweep] {model} {part} m={m}: default blocks "
               f"{layer['default']:.4f} ms, fastest block per call "
               f"{layer['best']:.4f} ms", flush=True)
     return 0

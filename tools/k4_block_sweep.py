@@ -11,11 +11,12 @@ held against its plain version (K4 at chip_smoke.K4_TOL, K2 bit for bit
 against ``torch.add``), then timed by device time (chip_smoke.device_ms:
 calls replayed from a CUDA graph).
 
-K4 (ssd_scan): at the main path's shapes (chip_smoke.phase_ssd: BH 32, P
-64, N 128, chunk 128, f32 x, bf16 b/c, T = 37, 64, 300, 2048) and at a
-batch of two and of four 300-token sequences (BH 64, 128), every (column
-block, ring stages) of ``ssd_scan_sweep.cu`` and the fma variant; the
-shipped (``ssd_scan.MMA_BLOCK_P``, ``MMA_STAGES``) is marked ``*``.
+K4 (ssd_scan): at the main paths' shapes (chip_smoke.phase_ssd: mamba2-
+370m's BH 32, P 64, N 128 and zamba2-2.7b's BH 80, P 64, N 64; chunk 128,
+f32 x, bf16 b/c, T = 37, 64, 300, 2048) and at a batch of two and of four
+300-token mamba2-370m sequences (BH 64, 128), every (column block, ring
+stages) of ``ssd_scan_sweep.cu`` and the fma variant; the shipped
+(``ssd_scan.MMA_BLOCK_P``, ``MMA_STAGES``) is marked ``*``.
 
 K2 (ame_elementwise): at chip_smoke.K2_MODEL_CASES, the add at every
 (threads, 16-byte vectors a thread) of ``ame_elementwise_sweep.cu``, with
@@ -67,13 +68,20 @@ def sweep_k4(dev) -> None:
             return out
         return call
 
-    s = get("mamba2-370m").ssm
     atol, rtol = chip_smoke.K4_TOL["float32"]
     gen = torch.Generator(device=dev).manual_seed(2)
-    shapes = [(32, t) for t in (37, 64, chip_smoke.LONG_PROMPT, 2048)]
-    shapes += [(64, chip_smoke.LONG_PROMPT), (128, chip_smoke.LONG_PROMPT)]
+    shapes = []
+    for name in ("mamba2-370m", "zamba2-2.7b"):
+        cfg = get(name)
+        s = cfg.ssm
+        bh = s.expand * cfg.d_model // s.head_dim      # one sequence's heads
+        shapes += [(s, bh, t) for t in (37, 64, chip_smoke.LONG_PROMPT,
+                                        2048)]
+    s = get("mamba2-370m").ssm
+    shapes += [(s, 64, chip_smoke.LONG_PROMPT),
+               (s, 128, chip_smoke.LONG_PROMPT)]
     shipped = (k4.MMA_BLOCK_P, k4.MMA_STAGES)
-    for bh, t in shapes:
+    for s, bh, t in shapes:
         x = torch.randn(bh, t, s.head_dim, generator=gen, device=dev) * 0.5
         la = -(torch.randn(bh, t, generator=gen, device=dev) * 0.2).abs()
         b, c = [(torch.randn(bh, t, s.d_state, generator=gen, device=dev)
