@@ -79,7 +79,29 @@ Phases (any failure exits non-zero and prints no result line):
              with zamba2's per-application LoRA merge profiled on its own;
              a reduced model on the card is held against the same model on
              the CPU.
-11. report — fail if any device time reads below its bound; one JSON
+11. offload — the serve path's PIM decode offload, with obs and faults:
+             full-width qwen3-1.7b served through ``Server(backend=
+             "kernel", pim_offload=DecodeOffload(16 channels x 4 stacks,
+             async, KV offload, metrics, OFFLOAD_PLAN), faults=
+             OFFLOAD_PLAN)``, every kernel count set to 0 just before and
+             read just after (196 K1 launches per forward); every
+             completed request's tokens equal the clean serve's; the fault
+             counters (retries, failed requests, channel failures, link
+             retries) printed and non-zero where the plan says; the
+             sidecar's roofline under the H100 descriptor, its host ms per
+             decode step, and the offload serve step's busy and idle
+             shares.  Then serve_lm's reduced qwen3 with a numeric,
+             KV-offloading, async sidecar under NUMERIC_PLAN on the card
+             and on the CPU: every record within NUMERIC_ATOL and equal
+             (error maxima within OFFLOAD_ERR_TOL), logits bit for bit,
+             command and Chrome traces byte for byte; its critical-path
+             summary.  Last, results/BENCH_runtime.json's decode, kv, obs,
+             faults and moe (replication 4) values and
+             results/dryrun/qwen3-1.7b.decode.pim_offload.json, exactly,
+             from the port alone with the reference's setups
+             (benchmarks/paper_figures.py).  Modeled Aquabolt-XL cycles;
+             the wall times are the card host's.
+12. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -159,6 +181,30 @@ CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512, "zamba2-2.7b": 512}
 RUNTIME_GEMM = (256, 192, 96)
 #: the modeled cluster values the runtime must reproduce (``cluster``)
 BENCH_RUNTIME = ROOT / "results" / "BENCH_runtime.json"
+#: the committed decode-offload roofline artifact the port's dump must equal
+OFFLOAD_DUMP = ROOT / "results" / "dryrun" / \
+    "qwen3-1.7b.decode.pim_offload.json"
+#: the offload serve's fault plan: channel 5 (stack 0) fail-stops after
+#: about three sidecar steps (a full-width step is ~1.7e7 modeled cycles),
+#: the host link then re-carries the lost residency and retransmits each
+#: charge with p = 0.5, and the request in serve slot 1 is knocked out at
+#: serving iteration 4 and restarts from its prompt
+OFFLOAD_PLAN = "kill channel 5 @ 5e7; flaky link p=0.5; fail slot 1 @ iter 4"
+#: the sidecar's layout at full width: 16 pseudo-channels x 4 stacks
+OFFLOAD_CHANNELS, OFFLOAD_STACKS = 16, 4
+#: the numeric sidecar's model: serve_lm's reduced qwen3-1.7b
+#: (examples/serve_lm.py:73-74), its requests and its fault plan
+NUMERIC_CFG = dict(n_layers=4, d_model=256, d_ff=512, vocab_size=1024)
+NUMERIC_REQUESTS, NUMERIC_SLOTS, NUMERIC_MAX_NEW = 6, 2, 8
+NUMERIC_PLAN = "kill channel 1 @ 30000"
+#: error maxima of a numeric StepRecord, card vs CPU: the same FP16 PIM
+#: outputs against FP32 references summed in another order (TF32 off),
+#: and the runtime's FP32 softmax may round a probability one FP16 ulp
+#: apart (tests/test_torch_gpu.py holds the same limit)
+OFFLOAD_ERR_TOL = 1e-5
+#: the reference's host constants (TPU v5e: repro/launch/hw.py), which the
+#: committed dump was priced with
+REF_PEAK_FLOPS, REF_HBM_BW = 197e12, 819e9
 
 
 def log(msg: str) -> None:
@@ -1182,7 +1228,8 @@ def phase_serve(cfg, dev):
     torch.cuda.empty_cache()
     return dict(requests=len(done), tokens=tokens, wall_s=wall,
                 params=n_params, launches=launches, bf16_err=err,
-                bf16_limit=tol)
+                bf16_limit=tol,
+                out_tokens={r.uid: list(r.out_tokens) for r in done})
 
 
 def _profile(fn):
@@ -1350,6 +1397,347 @@ def phase_small_reference(cfg_full, dev, prompt_t):
         raise AssertionError("reduced model on the card disagrees with CPU")
 
 
+def _timed_calls(obj, name, wall_s):
+    """Wrap ``obj.name`` so each call's host wall seconds land in
+    ``wall_s`` (the sidecar's own cost inside a serving step)."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            wall_s.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+
+
+def phase_offload_serve(cfg, dev, clean_tokens):
+    """Full-width qwen3-1.7b through Server with the analytic sidecar and
+    the fault plan attached: K1 launches, restarted requests' tokens
+    against the clean serve, fault counters, roofline, sidecar host cost
+    and the served step's busy/idle shares.  Returns the K1 launches."""
+    import torch
+    from repro_torch.kernels import ame_gemm as k1
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.models import model as lm
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve.loop import Request, Server
+    from repro_torch.serve.offload import DecodeOffload
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)            # the serve phase's
+    reg = MetricsRegistry()
+    off = DecodeOffload(cfg, channels=OFFLOAD_CHANNELS, stacks=OFFLOAD_STACKS,
+                        async_mode=True, kv_offload=True, metrics=reg,
+                        faults=OFFLOAD_PLAN, device=dev)
+    srv = Server(cfg, params, slots=SLOTS, cache_len=CACHE_LEN[cfg.name],
+                 metrics=reg, pim_offload=off, faults=OFFLOAD_PLAN,
+                 backend="kernel", device=dev)
+    side_s = []
+    _timed_calls(off, "step", side_s)
+    torch.cuda.synchronize()
+    log(f"[offload] {cfg.name} with DecodeOffload({OFFLOAD_CHANNELS} "
+        f"channels x {OFFLOAD_STACKS} stacks, async, kv_offload, "
+        f"{off.weight_bytes:,} weight bytes placed) and faults "
+        f"{OFFLOAD_PLAN!r} ready in {time.perf_counter() - t0:.1f}s")
+    prompts = _prompts(cfg)
+    for u, p in enumerate(prompts):
+        srv.submit(Request(uid=u, prompt=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0                     # main path starts
+    t0 = time.perf_counter()
+    done = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ame_gemm": k1.launches,              # main path ends
+                "ssd_scan": k4.launches}
+    forwards = srv.prefills + srv.decode_steps
+    want = {"ame_gemm": k1_per_forward(cfg) * forwards, "ssd_scan": 0}
+    inj = off.rt.faults
+    summ = srv.latency_summary()
+    log(f"[offload] {len(done)} completed, {len(srv.failed_requests)} "
+        f"failed, {srv.prefills} prefills + {srv.decode_steps} decode steps "
+        f"in {wall:.3f}s wall (synchronised); launches {launches} "
+        f"(expected {want})")
+    log(f"[offload] faults: retries_total={srv.retries_total} "
+        f"failed_requests={len(srv.failed_requests)} shed={srv.shed} "
+        f"channel_failures={inj.counters.get('channel_failures', 0):.0f} "
+        f"link_retries={inj.counters.get('link_retries', 0):.0f} "
+        f"reupload_bytes={inj.counters.get('reupload_bytes', 0):.0f} "
+        f"failed={sorted(inj.failed)} surviving_fraction="
+        f"{off.surviving_fraction:.4f}; latency_summary retries="
+        f"{summ['retries']} failed={summ['failed']}")
+    if launches != want or launches["ame_gemm"] == 0:
+        raise AssertionError("the offload serve did not go through K1 once "
+                             "per projection")
+    if len(done) + len(srv.failed_requests) != N_REQUESTS:
+        raise AssertionError("the offload serve lost requests")
+    mismatched = [r.uid for r in done if r.out_tokens != clean_tokens[r.uid]]
+    restarted = [r.uid for r in done if r.retries]
+    log(f"[offload] tokens vs the clean serve: {len(done) - len(mismatched)}"
+        f" of {len(done)} requests equal (restarted from their prompts: "
+        f"{restarted})")
+    if mismatched or not restarted:
+        raise AssertionError(f"offload serve tokens differ from the clean "
+                             f"serve's for {mismatched}, or no request "
+                             f"restarted")
+    if not (srv.retries_total >= 1
+            and inj.counters.get("channel_failures") == 1
+            and inj.counters.get("link_retries", 0) > 0):
+        raise AssertionError("the fault plan did not fire as written")
+    roof = off.roofline()
+    side_ms = [1e3 * s for s in side_s]
+    log(f"[offload] roofline (host priced as the H100 SXM descriptor, "
+        f"{off.peak_flops:.3g} FLOP/s, {off.hbm_bw:.3g} B/s): steady_pim_s="
+        f"{roof['steady_pim_s']:.6g} steady_host_s="
+        f"{roof['steady_host_s']:.6g} ({roof['steady_host_bound']}-bound) "
+        f"pim_vs_host={roof['steady_pim_vs_host']:.6g}; steady h2d "
+        f"{roof['steady_h2d_bytes']} B/step, kv {roof['kv']['append_bytes']}"
+        f" B appended; modeled Aquabolt-XL cycles")
+    log(f"[offload] sidecar host time per decode step: mean "
+        f"{sum(side_ms) / len(side_ms):.1f} ms, min {min(side_ms):.1f}, max "
+        f"{max(side_ms):.1f} over {len(side_ms)} steps (card host CPU); "
+        f"{sum(side_s):.2f}s of the serve's {wall:.2f}s wall")
+    snap = reg.snapshot()
+    log(f"[offload] metrics: offload.steps={snap['offload.steps']['value']}"
+        f" serve.retries={snap['serve.retries']['value']} "
+        f"faults.link_retries={snap['faults.link_retries']['value']}")
+
+    # the served step's time: decode-only steps of 4 fresh long requests
+    for u, p in enumerate(prompts[:SLOTS]):
+        srv.submit(Request(uid=100 + u, prompt=p, max_new=4 * MAX_NEW))
+    srv.step()                                        # admits all four
+    steps = 3
+    side_s.clear()
+    step_ms, host_ms = _event_ms(srv.step, steps)
+    kernels, n_launch = _profile(srv.step)
+    _log_profile("offload", f"{cfg.name} Server.step with the sidecar, "
+                 f"M={SLOTS}", step_ms, host_ms, steps, kernels, n_launch)
+    log(f"[offload] of which the sidecar's host time: "
+        f"{1e3 * sum(side_s) / len(side_s):.1f} ms a step")
+    del params, srv, off
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _uids_by_appearance(text):
+    """``text`` with every ``uid=N`` renumbered by first appearance: tensor
+    uids count per process, so two runs in one process label the same
+    tensors with other numbers."""
+    import re
+    seen = {}
+    return re.sub(r"uid=(\d+)", lambda m: "uid=%d" % seen.setdefault(
+        m.group(1), len(seen)), text)
+
+
+def phase_offload_numeric(dev):
+    """serve_lm's reduced qwen3-1.7b served with a numeric, KV-offloading,
+    async sidecar under NUMERIC_PLAN, on the card and on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    from repro_torch.obs import export_chrome_trace, profile_report
+    from repro_torch.runtime import emit_trace
+    from repro_torch.serve.loop import Request, Server
+    from repro_torch.serve.offload import NUMERIC_ATOL, DecodeOffload
+
+    cfg = get("qwen3-1.7b").reduced().replace(**NUMERIC_CFG)
+    cpu_params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    runs = {}
+    for where, device, backend in (("cpu", "cpu", "torch"),
+                                   ("card", dev, "kernel")):
+        t0 = time.perf_counter()
+        off = DecodeOffload(cfg, channels=4, stacks=2, numeric=True,
+                            kv_offload=True, async_mode=True,
+                            faults=NUMERIC_PLAN, device=device)
+        srv = Server(cfg, _to(cpu_params, device), slots=NUMERIC_SLOTS,
+                     cache_len=160, pim_offload=off, backend=backend,
+                     device=device)
+        rng = np.random.default_rng(0)
+        for uid in range(NUMERIC_REQUESTS):
+            plen = int(rng.integers(4, 32))
+            srv.submit(Request(uid=uid, prompt=rng.integers(
+                0, 1023, plen).astype(np.int32), max_new=NUMERIC_MAX_NEW))
+        srv.run_until_drained()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[where] = dict(
+            off=off, wall=wall, logits=off.last_logits,
+            steps=[dataclasses.asdict(s) for s in off.steps],
+            xfer=[dataclasses.asdict(d.xfer) for d in off.rt.stack],
+            trace=emit_trace(off.rt.stack),
+            chrome=_uids_by_appearance(json.dumps(
+                export_chrome_trace(off.rt))),
+            faults=dict(off.rt.faults.counters), kv=off.kv.summary())
+    cpu, card = runs["cpu"], runs["card"]
+    if card["logits"].device != dev or card["logits"].dtype != torch.float16:
+        raise AssertionError("the numeric sidecar's logits are not float16 "
+                             "on the card")
+    errs = {f: max(s[f] for s in card["steps"])
+            for f in ("numeric_max_err", "logits_max_err", "attn_max_err")}
+    diff = 0.0
+    same_rest = len(cpu["steps"]) == len(card["steps"])
+    for a, b in zip(cpu["steps"], card["steps"]):
+        a, b = dict(a), dict(b)
+        for f in errs:
+            diff = max(diff, abs(a.pop(f) - b.pop(f)))
+        same_rest &= a == b
+    same_logits = torch.equal(card["logits"].cpu().view(torch.int16),
+                              cpu["logits"].view(torch.int16))
+    same = {key: cpu[key] == card[key]
+            for key in ("xfer", "trace", "chrome", "faults", "kv")}
+    log(f"[offload] numeric reduced {cfg.name} ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}), {len(card['steps'])} sidecar steps: max "
+        f"errors {errs} (NUMERIC_ATOL {NUMERIC_ATOL}); card vs CPU: records "
+        f"{'equal' if same_rest else 'DIFFER'} (error maxima within "
+        f"{diff:.3g}, limit {OFFLOAD_ERR_TOL}), logits "
+        f"{'bit-exact' if same_logits else 'DIFFER'}, {same}; faults "
+        f"{card['faults']}; wall {card['wall']:.2f}s on the card, "
+        f"{cpu['wall']:.2f}s on the CPU")
+    log("[offload] profile_report(off.rt).summary(top_k=5) on the card:")
+    for line in profile_report(card["off"].rt).summary(top_k=5).splitlines():
+        log(f"[offload]   {line}")
+    if not (all(v < NUMERIC_ATOL for v in errs.values()) and same_rest
+            and diff <= OFFLOAD_ERR_TOL and same_logits and all(same.values())
+            and card["faults"].get("channel_failures") == 1):
+        raise AssertionError("the numeric sidecar on the card differs from "
+                             "the CPU or from its FP32 references")
+
+
+def phase_offload_values(dev, tmp_dir):
+    """results/BENCH_runtime.json's decode, kv, obs, faults and moe values
+    and the committed dump, reproduced with the reference's setups
+    (benchmarks/paper_figures.py) from repro_torch alone."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.obs import export_chrome_trace, profile_report
+    from repro_torch.runtime import KVCacheManager, PIMRuntime
+    from repro_torch.serve.offload import DecodeOffload
+    from repro_torch.serve.traffic import zipf_routing
+
+    t_all = time.perf_counter()
+    bench = json.loads(BENCH_RUNTIME.read_text())
+    cfg = get("qwen3-1.7b").reduced()
+    z = lambda *shape: np.broadcast_to(np.float16(0), shape)   # noqa: E731
+    got = {}
+    # decode_async_sweep
+    sync = DecodeOffload(cfg, channels=16, stacks=4, placement="balanced",
+                         device=dev)
+    asy = DecodeOffload(cfg, channels=16, stacks=4, placement="balanced",
+                        async_mode=True, device=dev)
+    sync.step(1), asy.step(1)
+    rec_s, rec_a = sync.step(1), asy.step(1)
+    cfg8 = cfg.replace(n_layers=8)
+    p1, p4 = (DecodeOffload(cfg8, channels=16, stacks=4, placement="balanced",
+                            async_mode=True, device=dev).pipeline(r, 8)
+              for r in (1, 4))
+    got["decode"] = {
+        "serial_step_cycles": rec_s.pim_cycles,
+        "async_step_cycles": rec_a.pim_cycles,
+        "pipeline_eff_4stack": round(p1["makespan_cycles"]
+                                     / p4["makespan_cycles"], 6)}
+    # kv_sweep
+    rt = PIMRuntime(channels=16, device=dev)
+    kv = KVCacheManager(rt, n_layers=1, n_kv_heads=1, head_dim=64,
+                        channels_for_layer=lambda ell: range(16))
+    kv.request("r")
+    kv.append_tokens("r", 0, 8192)
+    q = np.zeros((64, 4), np.float16)
+    K, VT = kv.tensors("r", 0, 0)
+    scores, r1 = rt.gemm(K, q, placement="paged", keep_output=True,
+                         execute=False)
+    _, r2 = rt.softmax(scores, placement="paged", execute=False)
+    _, r3 = rt.gemm(VT, scores, placement="paged", execute=False)
+    rt_str = PIMRuntime(channels=16, device=dev)
+    got["kv"] = {
+        "paged_step_cycles": r1.makespan_cycles + r2.makespan_cycles
+        + r3.makespan_cycles,
+        "streamed_step_cycles": sum(
+            rt_str.gemm(a, b, placement="row-striped",
+                        execute=False)[1].makespan_cycles
+            for a, b in ((z(8192, 64), q), (z(64, 8192), z(8192, 4))))}
+    # obs_sweep
+    off = DecodeOffload(cfg, channels=16, stacks=2, placement="balanced",
+                        async_mode=True, device=dev)
+    off.step(1)
+    off.step(1)
+    trace = export_chrome_trace(off.rt, str(tmp_dir / "obs_profile.json"))
+    events = trace["traceEvents"]
+    rep = profile_report(off.rt)
+    got["obs"] = {
+        "obs_makespan_cycles": rep.makespan_cycles,
+        "obs_trace_events": float(len(events)),
+        "obs_tracks": float(len({(e["pid"], e["tid"]) for e in events
+                                 if e.get("ph") == "X"
+                                 and e.get("cat") == "op"})),
+        "obs_flow_pairs": float(sum(e.get("ph") == "s" for e in events))}
+    # faults_sweep
+    _, ideal = PIMRuntime(channels=16, device=dev).gemm(
+        z(30720, 256), z(256, 256), placement="row-striped", execute=False)
+    _, deg = PIMRuntime(channels=16, faults="kill channel 0 @ 0",
+                        device=dev).gemm(z(30720, 256), z(256, 256),
+                                         placement="row-striped",
+                                         execute=False)
+    got["faults"] = {"degradation_ratio": round(
+        deg.cluster_makespan_cycles / ideal.cluster_makespan_cycles, 6)}
+    # moe_sweep at replication 4, and its migration run
+    t0 = time.perf_counter()
+    mcfg = get("mixtral-8x22b")
+    n_moe = mcfg.n_layers - mcfg.moe.first_dense_layers
+    prof = zipf_routing(n_moe, mcfg.moe.num_experts, 4096, alpha=1.0, seed=3)
+    rr = DecodeOffload(mcfg, stacks=4, routing=prof, replicate_experts=0,
+                       expert_placement="roundrobin", device=dev)
+    rr_cycles = rr.step(32).pim_cycles
+    rep4 = DecodeOffload(mcfg, stacks=4, routing=prof, replicate_experts=4,
+                         device=dev)
+    rec4 = rep4.step(32)
+    ms = rep4.moe_summary()
+    rcfg = mcfg.reduced()
+    rn = rcfg.n_layers - rcfg.moe.first_dense_layers
+    mig = DecodeOffload(rcfg, channels=4, stacks=2,
+                        routing=zipf_routing(rn, rcfg.moe.num_experts, 512,
+                                             alpha=1.0, seed=3),
+                        replicate_experts=1, migrate_threshold=0.05,
+                        migrate_min_tokens=16, link_topology="switched",
+                        device=dev)
+    mig.step(4)
+    mig.set_routing(zipf_routing(rn, rcfg.moe.num_experts, 512, alpha=1.0,
+                                 seed=43))
+    for _ in range(4):
+        mig.step(4)
+    got["moe"] = {
+        "speedup_vs_roundrobin": round(rr_cycles / rec4.pim_cycles, 4),
+        "balance_max_over_mean": round(ms["observed_max_over_mean"], 4),
+        "replica_hit_rate": round(ms["replica_hit_rate"], 4),
+        "migrations": float(mig.moe_counters["migrations"])}
+    moe_s = time.perf_counter() - t0
+    # residency_sweep's dump, with the reference's host constants
+    dump = DecodeOffload(cfg, channels=16, placement="balanced", device=dev,
+                         peak_flops=REF_PEAK_FLOPS, hbm_bw=REF_HBM_BW)
+    for _ in range(3):
+        dump.step(4)
+    out = tmp_dir / OFFLOAD_DUMP.name
+    dump.dump(str(out))
+    same_dump = out.read_bytes() == OFFLOAD_DUMP.read_bytes()
+    wrong = {sec: {k: (v, bench[sec][k]) for k, v in vals.items()
+                   if v != bench[sec][k]} for sec, vals in got.items()}
+    wrong = {sec: w for sec, w in wrong.items() if w}
+    for sec, vals in got.items():
+        log(f"[offload] BENCH_runtime.json {sec}: {vals}")
+    log(f"[offload] dump vs {OFFLOAD_DUMP.relative_to(ROOT)}: "
+        f"{'byte-identical' if same_dump else 'DIFFERS'}; values "
+        f"{'all equal' if not wrong else f'DIFFER {wrong}'}; "
+        f"{time.perf_counter() - t_all:.1f}s of card host time "
+        f"({moe_s:.1f}s the moe sweep)")
+    if wrong or not same_dump:
+        raise AssertionError("the port does not reproduce the reference's "
+                             "offload values")
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1477,6 +1865,12 @@ def main() -> int:
     for cfg, small_prompt in ((qwen, 16), (mamba, 40), (zamba, 40)):
         serves[cfg.name] = phase_serve(cfg, dev)
         phase_small_reference(cfg, dev, small_prompt)
+    serves["qwen3-1.7b+offload"] = {"launches": phase_offload_serve(
+        qwen, dev, serves["qwen3-1.7b"]["out_tokens"])}
+    phase_offload_numeric(dev)
+    out_dir = ROOT / "build" / "repro_torch" / "offload"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    phase_offload_values(dev, out_dir)
     check_bounds(k1_records + k4_records + k2_records + k3_records)
     print(json.dumps(kernels_line(k1_records, k4_records, k2_records,
                                   k3_records, serves, ops_launches)),

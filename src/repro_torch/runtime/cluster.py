@@ -75,8 +75,7 @@ class HostLinkLedger:
     resident shards re-shipped / failover weight migration),
     ``"retry"`` (transient-corruption retransmits incl. backoff pause),
     and ``"degrade"`` (bandwidth-degradation windows; the count slot
-    carries the *extra cycles*, since no new bytes move); the port
-    charges none of them until fault injection is ported.  The serving
+    carries the *extra cycles*, since no new bytes move).  The serving
     simulator (:class:`repro_torch.serve.loop.TrafficServer`) adds two
     phase-contention kinds: ``"prefill"`` (host-prefilled KV handed off
     to PIM-resident pages) and ``"acts"`` (per-decode-step activation
@@ -100,6 +99,12 @@ class HostLinkLedger:
     # excluded from ==/repr so instrumented ledgers stay equal to bare
     # ones — the profiling-off byte-identity invariant
     metrics: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # repro_torch.faults.FaultInjector (attached via
+    # PIMRuntime(faults=)); excluded from == for the same reason — an
+    # injector with an empty plan must leave the ledger ==-equal to a
+    # bare one
+    faults: Optional[object] = dataclasses.field(
         default=None, compare=False, repr=False)
     # metric-name prefix: the shared link keeps "link"; a switched
     # cluster labels its per-stack ledgers "link<s>".  Excluded from ==
@@ -126,7 +131,10 @@ class HostLinkLedger:
 
     def charge(self, kind: str, nbytes: int) -> int:
         assert kind in self.KINDS, kind
-        return self.charge_raw(kind, nbytes, host_link_cycles(nbytes))
+        cyc = self.charge_raw(kind, nbytes, host_link_cycles(nbytes))
+        if self.faults is not None:
+            self.faults.on_link_charge(self, kind, nbytes, cyc)
+        return cyc
 
 
 class PIMCluster:

@@ -116,6 +116,10 @@ class PIMDevice:
                  capacity_bytes: Optional[int] = None, device=None):
         self.channel_id = channel_id
         self.capacity_bytes = capacity_bytes
+        # fail-stop flag set by repro_torch.faults.FaultInjector; a failed
+        # channel is excluded from new placement decompositions and its
+        # residency table has been wiped (shards lost)
+        self.failed = False
         self.engine = AMEEngine(device=device)
         self.xfer = TransferLedger()
         self.events: List[Tuple[str, object]] = []

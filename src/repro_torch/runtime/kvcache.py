@@ -34,8 +34,7 @@ dropped), so a numeric decode offload can cross-check attention-on-PIM
 outputs against an FP32 reference across evictions and faults.
 
 Port of ``repro.runtime.kvcache``; a numeric page mirror is a float16
-tensor on the runtime's device.  Fault injection and ``DecodeOffload``
-are not ported yet (ROADMAP.md, queue 1, items 4 and 6).
+tensor on the runtime's device.
 """
 from __future__ import annotations
 

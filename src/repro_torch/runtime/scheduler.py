@@ -86,9 +86,8 @@ runtime's ``device`` (the card unless the caller passes another): host
 operands (numpy arrays or tensors) are rounded to FP16 once per executed
 op and moved there, a :class:`DeviceTensor`'s mirror already lives
 there, and results are float16 tensors on it.  The ledgers, reports and
-traces are the reference's, ``==`` and byte for byte.  Fault injection
-and the profiler (``faults=``, ``profile=``) are not ported yet and
-raise.
+traces are the reference's, ``==`` and byte for byte, with or without
+an attached profiler (``profile=``) or fault plan (``faults=``).
 """
 from __future__ import annotations
 
@@ -194,9 +193,8 @@ class RuntimeReport:
     stacks: int = 1                   # stacks behind the runtime
     host_link_bytes: int = 0          # inter-stack bytes over the host link
     host_link_cycles: int = 0
-    # fail-stopped flat channel ids at dispatch time; kept for field
-    # parity with the reference, always () until fault injection is
-    # ported (ROADMAP.md, queue 1, item 4)
+    # fail-stopped flat channel ids at dispatch time (repro_torch.faults)
+    # — non-empty reports ran degraded, on the surviving decomposition
     failed_channels: Tuple[int, ...] = ()
 
     @property
@@ -350,8 +348,9 @@ class PIMRuntime:
     ``device`` is where every channel's engine holds its tiles and runs
     the numerics, and where results land: the card unless the caller
     passes another device (an explicit ``stack=`` brings its own).
-    ``metrics=`` takes a :class:`~repro_torch.obs.metrics.MetricsRegistry`;
-    ``profile=`` and ``faults=`` wait for the obs/faults slice and raise.
+    ``metrics=`` takes a :class:`~repro_torch.obs.metrics.MetricsRegistry`,
+    ``profile=`` a :class:`~repro_torch.obs.profile.Profiler` (or True),
+    ``faults=`` a :class:`~repro_torch.faults.plan.FaultPlan` or its DSL.
     """
 
     def __init__(self, channels: int = 1, stack: Optional[PIMStack] = None,
@@ -362,11 +361,6 @@ class PIMRuntime:
                  link_topology: str = "shared",
                  metrics=None, profile=None, faults=None, device=None):
         assert engine in ENGINE_MODES, engine
-        for name, opt in (("profile", profile), ("faults", faults)):
-            if opt is not None and opt is not False:
-                raise NotImplementedError(
-                    f"{name}= waits for the obs/faults slice (ROADMAP.md, "
-                    f"queue 1, item 4)")
         if stack is not None:
             if stacks != 1 or capacity_bytes is not None \
                     or link_topology != "shared" or device is not None:
@@ -395,14 +389,34 @@ class PIMRuntime:
         # dep inference: tensor uid -> the OpHandle that last wrote it
         # (place uploads and keep_output results); readers wait on it
         self._writers: Dict[int, OpHandle] = {}
-        # -- observability (repro_torch.obs), strictly additive: the hook
-        # only *reads* finished reports/ledgers, so traces, ledgers and
-        # numerics are untouched when it is attached, and nothing below
-        # runs at all when it stays None (the default)
+        # -- observability (repro_torch.obs), strictly additive: both
+        # hooks only *read* finished reports/ledgers, so traces, ledgers
+        # and numerics are untouched when either is attached, and nothing
+        # below runs at all when both stay None (the default)
         self.metrics = metrics
         if metrics is not None and self._cluster is not None:
             for link in self._cluster.all_links():
                 link.metrics = metrics
+        self.profile = None
+        if profile:
+            from repro_torch.obs.profile import Profiler
+            prof = Profiler() if profile is True else profile
+            self.profile = prof.attach(self)
+        # -- fault injection (repro_torch.faults), same additive
+        # discipline: an attached *empty* plan leaves ledgers ==-equal and
+        # traces byte-identical, and with faults=None nothing below runs
+        self.faults = None
+        if faults is not None:
+            from repro_torch.faults.injector import FaultInjector
+            from repro_torch.faults.plan import as_plan
+            self.faults = FaultInjector(as_plan(faults), self)
+            if self._cluster is not None:
+                # per-link routing: every ledger (shared/uplink and each
+                # per-stack link on a switched cluster) gets the hook, so
+                # retries/degradation land on the link that carried the
+                # bytes
+                for link in self._cluster.all_links():
+                    link.faults = self.faults
 
     # -- internals -----------------------------------------------------------
 
@@ -560,6 +574,21 @@ class PIMRuntime:
                     help="per-op cluster makespan distribution").record(
             report.cluster_makespan_cycles)
 
+    def _fault_epilogue(self, report: RuntimeReport,
+                        out_handle: Optional[DeviceTensor]) -> None:
+        """Per-op fault-injector bookkeeping: register kept outputs for
+        pinned-output replay (with their producer busy cycles), advance
+        the serialized fault clock, and close the op's lost-uid window."""
+        inj = self.faults
+        if out_handle is not None and out_handle.pending_d2h:
+            inj.register(out_handle)
+            busy_by = {c.channel: c.busy_cycles for c in report.per_channel}
+            for ch, _box in out_handle.pending_d2h:
+                inj.note_output(out_handle.uid, ch, busy_by.get(ch, 0.0))
+        if self.timeline is None:
+            inj.advance(report.cluster_makespan_cycles)
+        inj.end_op()
+
     def _submit_async(self, name: str, busy: Dict[int, float],
                       link_cycles: int, marks: Dict[int, int],
                       reads: Sequence[int], writes: Sequence[int],
@@ -623,7 +652,10 @@ class PIMRuntime:
             per_channel=tuple(reports),
             stacks=self.n_stacks,
             host_link_bytes=lb - link_before[0],
-            host_link_cycles=lc - link_before[1])
+            host_link_cycles=lc - link_before[1],
+            failed_channels=(tuple(sorted(self.faults.failed))
+                             if self.faults is not None
+                             and self.faults.failed else ()))
 
     def _ship_in(self, dev: PIMDevice, handle: Optional[DeviceTensor],
                  box: Box, shipped: Dict[int, Set], role: str,
@@ -646,6 +678,10 @@ class PIMRuntime:
                 dev.note_reuse(nbytes)
                 return False
             dev.host_to_pim(nbytes)
+            if self.faults is not None:
+                # a miss whose residency was lost to a channel failure is
+                # recovery traffic: the host link re-carries it on clusters
+                self.faults.on_reship(dev, handle.uid, nbytes)
             if link_seen is not None:
                 self._link_charge_ship(
                     (role, handle.uid, box),
@@ -705,6 +741,8 @@ class PIMRuntime:
                 f"PIMRuntime.place expects a 2D array or a (rows, cols) "
                 f"shape tuple, got shape {shape} — reshape/flatten to 2D "
                 f"(e.g. arr.reshape(rows, -1)) before placing")
+        if self.faults is not None:
+            stack, channels = self.faults.on_op(stack, channels)
         handle = DeviceTensor(self.stack, shape, values=arr)
         if role == "A":
             m, k = shape
@@ -744,6 +782,13 @@ class PIMRuntime:
                 help="one-time h2d charged by place()").inc(
                 sum(d.xfer.h2d_bytes - before_h2d_bytes[d.channel_id]
                     for d in op_devs))
+        if self.faults is not None:
+            if self.timeline is None:
+                self.faults.advance(max(
+                    max((float(d.xfer.h2d_cycles - before_h2d[d.channel_id])
+                         for d in op_devs), default=0.0),
+                    float(self._link_before()[1] - link_before[1])))
+            self.faults.end_op()
         if self.timeline is not None:
             busy = {d.channel_id:
                     float(d.xfer.h2d_cycles - before_h2d[d.channel_id])
@@ -755,6 +800,13 @@ class PIMRuntime:
                 marks,
                 reads=(), writes=(handle.uid,), after=None,
                 report=None, result=handle)
+        elif self.profile is not None:
+            self.profile.on_op(
+                "place",
+                {d.channel_id:
+                 float(d.xfer.h2d_cycles - before_h2d[d.channel_id])
+                 for d in op_devs},
+                self._link_before()[1] - link_before[1])
         return handle
 
     # -- GEMM / GEMV ---------------------------------------------------------
@@ -795,6 +847,9 @@ class PIMRuntime:
         assert not execute or (a_vals is not None and b_vals is not None), \
             "analytic (shape-only) DeviceTensor operands require " \
             "execute=False"
+        if self.faults is not None:
+            # fire due fault events, then decompose over survivors only
+            stack, channels = self.faults.on_op(stack, channels)
         if execute:
             a_vals, b_vals = (as_f16(v, self.device) for v in (a_vals, b_vals))
         shards = self._shards(placement, m, k, n, stack, channels)
@@ -895,6 +950,8 @@ class PIMRuntime:
                               devices=op_devs)
         if self.metrics is not None:
             self._note_op(report)
+        if self.faults is not None:
+            self._fault_epilogue(report, out_handle)
         result = out_handle if keep_output \
             else (out if execute else None)
         if self.timeline is not None:
@@ -906,6 +963,11 @@ class PIMRuntime:
                 reads=[h.uid for h in (ah, bh) if h is not None],
                 writes=(out_handle.uid,) if keep_output else (),
                 after=after, report=report, result=result)
+        if self.profile is not None:
+            self.profile.on_op(
+                "gemm",
+                {c.channel: c.busy_cycles for c in report.per_channel},
+                report.host_link_cycles, report=report)
         return result, report
 
     def gemv(self, a: Operand, x, *,
@@ -939,6 +1001,8 @@ class PIMRuntime:
             return res
         y, rep = res
         rep = dataclasses.replace(rep, op="gemv")
+        if self.profile is not None:
+            self.profile.amend_last("gemv", rep)
         return (y[:, 0] if y is not None else None), rep
 
     # -- element-wise --------------------------------------------------------
@@ -974,6 +1038,8 @@ class PIMRuntime:
         assert not execute or (a_vals is not None and b_vals is not None), \
             "analytic (shape-only) DeviceTensor operands require " \
             "execute=False"
+        if self.faults is not None:
+            stack, channels = self.faults.on_op(stack, channels)
         if execute:
             a_vals, b_vals = (as_f16(v, self.device) for v in (a_vals, b_vals))
         shards = self._shards(placement, m, c, 1, stack, channels)
@@ -1034,6 +1100,8 @@ class PIMRuntime:
                               devices=op_devs)
         if self.metrics is not None:
             self._note_op(report)
+        if self.faults is not None:
+            self._fault_epilogue(report, out_handle)
         result = out_handle if keep_output \
             else (out if execute else None)
         if self.timeline is not None:
@@ -1045,6 +1113,11 @@ class PIMRuntime:
                 reads=[h.uid for h in (ah, bh) if h is not None],
                 writes=(out_handle.uid,) if keep_output else (),
                 after=after, report=report, result=result)
+        if self.profile is not None:
+            self.profile.on_op(
+                f"ew-{kind}",
+                {cr.channel: cr.busy_cycles for cr in report.per_channel},
+                report.host_link_cycles, report=report)
         return result, report
 
     def softmax(self, a: DeviceTensor, *,
@@ -1076,6 +1149,8 @@ class PIMRuntime:
         m, c = a.shape
         assert not execute or a.values is not None, \
             "analytic (shape-only) DeviceTensor requires execute=False"
+        if self.faults is not None:
+            stack, channels = self.faults.on_op(stack, channels)
         shards = self._shards(placement, m, c, 1, stack, channels)
 
         op_devs = self._op_devices(stack, channels)
@@ -1110,6 +1185,8 @@ class PIMRuntime:
                               devices=op_devs)
         if self.metrics is not None:
             self._note_op(report)
+        if self.faults is not None:
+            self._fault_epilogue(report, None)
         if self.timeline is not None:
             return self._submit_async(
                 "softmax",
@@ -1118,6 +1195,11 @@ class PIMRuntime:
                                         link_before), marks,
                 reads=(a.uid,), writes=(a.uid,),
                 after=after, report=report, result=a)
+        if self.profile is not None:
+            self.profile.on_op(
+                "softmax",
+                {cr.channel: cr.busy_cycles for cr in report.per_channel},
+                report.host_link_cycles, report=report)
         return a, report
 
 

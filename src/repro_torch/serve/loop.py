@@ -11,13 +11,33 @@ Every dense projection and the SSM prefill scan go through ``backend``:
 ``ssd_scan`` on the card, ``"torch"`` runs their plain versions.  Unlike the reference, whose jitted steps always take the
 default XLA backend, the backend reaches ``prefill`` and ``decode_step``.
 
+Pass ``pim_offload=DecodeOffload(cfg, ...)`` to mirror every decode
+step's matmuls onto a resident-weight PIM runtime (balanced placement,
+weights uploaded once): the sidecar accumulates a per-step PIM-vs-host
+roofline without touching the serving numerics — see
+:mod:`repro_torch.serve.offload`.  With ``kv_offload=True`` the sidecar
+also keeps each live request's KV resident: admission ships the prompt's
+KV in, retirement and knock-outs release it.
+
+Graceful degradation (:mod:`repro_torch.faults`): ``Server(faults=...)``
+accepts a :class:`~repro_torch.faults.plan.FaultPlan` (or DSL string)
+and consumes its :class:`~repro_torch.faults.plan.ServeFault` entries —
+the request decoding in the named slot at the named iteration is knocked
+out and requeued with per-request exponential backoff
+(``retry_backoff_steps`` doubling per retry, capped), failing permanently
+after ``max_retries``; a knocked-out request restarts from its prompt.
+``step_deadline_s`` counts over-deadline serving iterations;
+``max_queue`` turns :meth:`Server.submit` into admission control that
+sheds load (:class:`AdmissionError`) when the queue exceeds the cap
+*scaled by surviving PIM capacity*.
+
 Request timestamps come from a :class:`~repro_torch.serve.traffic.
 SimClock` by default — admission advances it by the prefill roofline,
-each decode iteration by the decode roofline of the
-:class:`~repro_torch.serve.traffic.HostCostModel` — so
-:meth:`Server.latency_summary` is deterministic; ``wall=True`` stamps
-wall-clock time instead.  The PIM decode offload (``pim_offload=``) and
-fault injection (``faults=``) wait for their slices.
+each decode iteration by the offload's ``StepRecord.pim_s`` (or the
+decode roofline of the :class:`~repro_torch.serve.traffic.HostCostModel`
+without a sidecar) — so :meth:`Server.latency_summary` is deterministic;
+``wall=True`` stamps wall-clock time instead, and an explicit ``clock=``
+shares one clock across servers.
 """
 from __future__ import annotations
 
@@ -30,16 +50,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.faults.plan import as_plan
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 from repro_torch.models.layers import as_backend
 from repro_torch.obs.metrics import Histogram
+from repro_torch.serve.offload import DecodeOffload
 from repro_torch.serve.traffic import HostCostModel, SimClock, WallClock
 
 
 class AdmissionError(RuntimeError):
-    """Admission control shed this request (queue over ``max_queue``).
-    Callers should back off and resubmit."""
+    """Admission control shed this request (queue over the surviving-
+    capacity-scaled cap).  Callers should back off and resubmit."""
 
 
 # eq=False: the generated __eq__ would compare the ndarray prompt field
@@ -55,23 +77,23 @@ class Request:
     admitted_at: float = 0.0        # left the queue (prefill started)
     first_token_at: float = 0.0     # prefill produced the first token
     finished_at: float = 0.0
+    retries: int = 0                # fault knock-outs survived so far
+    not_before: int = 0             # earliest serving iteration to re-admit
 
 
 class Server:
     def __init__(self, cfg: ArchConfig, params, slots: int = 4,
                  cache_len: int = 128, eos_id: Optional[int] = None,
-                 pim_offload=None, metrics=None, faults=None,
-                 max_queue: Optional[int] = None, wall: bool = False,
+                 pim_offload: Optional[DecodeOffload] = None,
+                 metrics=None, faults=None,
+                 step_deadline_s: Optional[float] = None,
+                 max_queue: Optional[int] = None,
+                 retry_backoff_steps: int = 2,
+                 retry_backoff_cap: int = 16,
+                 max_retries: int = 2,
+                 wall: bool = False, clock=None,
                  cost: Optional[HostCostModel] = None,
                  backend="kernel", device=None):
-        if pim_offload is not None:
-            raise NotImplementedError(
-                "pim_offload= waits for the offload slice (ROADMAP.md, "
-                "queue 1, item 6)")
-        if faults is not None:
-            raise NotImplementedError(
-                "faults= waits for the obs/faults slice (ROADMAP.md, "
-                "queue 1, item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         for leaf in (params["embed"]["table"], params["final_norm"]["scale"]):
@@ -85,7 +107,11 @@ class Server:
         self.slots = slots
         self.cache_len = cache_len
         self.eos_id = eos_id
-        self.clock = WallClock() if wall else SimClock()
+        self.pim_offload = pim_offload
+        # virtual-time stamping by default; wall=True stamps wall time,
+        # and an explicit clock= shares one SimClock across servers
+        self.clock = clock if clock is not None \
+            else (WallClock() if wall else SimClock())
         self.cost = cost if cost is not None else HostCostModel(cfg)
         self.metrics = metrics
         self.active: List[Optional[Request]] = [None] * slots
@@ -93,12 +119,25 @@ class Server:
         self.caches = lm.make_caches(cfg, slots, cache_len, self.device)
         self.queue: List[Request] = []
         self.completed: List[Request] = []
+        # -- graceful degradation state (all zero / empty without faults)
+        self.step_deadline_s = step_deadline_s
         self.max_queue = max_queue
+        self.retry_backoff_steps = retry_backoff_steps
+        self.retry_backoff_cap = retry_backoff_cap
+        self.max_retries = max_retries
+        self.failed_requests: List[Request] = []
         self.shed = 0                   # submissions refused at admission
+        self.deadline_misses = 0        # serving iterations over deadline
+        self.retries_total = 0          # fault knock-outs requeued
         self.undrained = 0              # left pending by run_until_drained
         self._iter = 0                  # serving-iteration counter (1-based)
         self.prefills = 0               # prefill forwards run
         self.decode_steps = 0           # batched decode forwards run
+        self._serve_faults: List = []
+        if faults is not None:
+            self._serve_faults = sorted(
+                as_plan(faults).serve_faults,
+                key=lambda f: (f.at_iter, f.slot))
 
     def _check_prompt(self, req: Request) -> None:
         """A prompt must leave at least one cache position for decode."""
@@ -108,26 +147,91 @@ class Server:
                 f"tokens but cache_len={self.cache_len} leaves no room "
                 f"to decode — truncate the prompt or grow cache_len")
 
+    @property
+    def _kv(self):
+        """The offload sidecar's KV manager when KV-resident attention
+        is on (``DecodeOffload(kv_offload=True)``), else None — every
+        hook below is a no-op without it."""
+        off = self.pim_offload
+        return off.kv if off is not None else None
+
+    @property
+    def surviving_fraction(self) -> float:
+        """Fraction of PIM decode capacity still alive (1.0 without an
+        offload sidecar or without faults) — scales the admission cap."""
+        off = self.pim_offload
+        return off.surviving_fraction if off is not None else 1.0
+
     def submit(self, req: Request):
         self._check_prompt(req)
-        if self.max_queue is not None and \
-                len(self.queue) >= max(1, self.max_queue):
-            self.shed += 1
-            if self.metrics is not None:
-                self.metrics.counter(
-                    "serve.shed", unit="requests",
-                    help="submissions shed by admission control").inc()
-            raise AdmissionError(
-                f"queue at {len(self.queue)} >= cap {self.max_queue}; "
-                f"shedding request uid={req.uid}")
+        if self.max_queue is not None:
+            cap = max(1, int(self.max_queue * self.surviving_fraction))
+            if len(self.queue) >= cap:
+                self.shed += 1
+                if self.metrics is not None:
+                    self.metrics.counter(
+                        "serve.shed", unit="requests",
+                        help="submissions shed by admission control").inc()
+                raise AdmissionError(
+                    f"queue at {len(self.queue)} >= cap {cap} "
+                    f"(max_queue={self.max_queue}, surviving="
+                    f"{self.surviving_fraction:.2f}); shedding "
+                    f"request uid={req.uid}")
         req.submitted_at = self.clock.now
         self.queue.append(req)
 
+    def _apply_serve_faults(self):
+        """Fire ServeFaults due this iteration: knock out the slot's
+        request and requeue it with exponential backoff (or fail it
+        permanently past max_retries)."""
+        due = [f for f in self._serve_faults if f.at_iter == self._iter]
+        if not due:
+            return
+        self._serve_faults = [f for f in self._serve_faults
+                              if f.at_iter != self._iter]
+        for f in due:
+            if f.slot >= self.slots or self.active[f.slot] is None:
+                continue
+            req = self.active[f.slot]
+            self.active[f.slot] = None
+            # the slot's cache is considered poisoned: restart the
+            # request from its prompt (prefill re-runs on re-admission);
+            # its PIM-resident KV drops with it
+            if self._kv is not None:
+                self.pim_offload.kv_release(req.uid)
+            req.out_tokens = []
+            req.first_token_at = 0.0
+            req.retries += 1
+            if req.retries > self.max_retries:
+                req.done = True
+                req.finished_at = self.clock.now
+                self.failed_requests.append(req)
+                if self.metrics is not None:
+                    self.metrics.counter(
+                        "serve.failed", unit="requests",
+                        help="requests failed past max_retries").inc()
+                continue
+            backoff = min(
+                self.retry_backoff_steps * 2 ** (req.retries - 1),
+                self.retry_backoff_cap)
+            req.not_before = self._iter + backoff
+            self.queue.append(req)
+            self.retries_total += 1
+            if self.metrics is not None:
+                self.metrics.counter(
+                    "serve.retries", unit="requests",
+                    help="fault knock-outs requeued with backoff").inc()
+
     def _admit(self):
-        """Prefill queued requests into free slots (FIFO)."""
+        """Prefill queued requests into free slots (FIFO among requests
+        whose retry backoff has elapsed)."""
         for i in range(self.slots):
             if self.active[i] is None and self.queue:
-                req = self.queue.pop(0)
+                idx = next((j for j, r in enumerate(self.queue)
+                            if r.not_before <= self._iter), None)
+                if idx is None:
+                    return           # everything queued is backing off
+                req = self.queue.pop(idx)
                 self._check_prompt(req)
                 req.admitted_at = self.clock.now
                 if self.metrics is not None:
@@ -154,6 +258,10 @@ class Server:
                         req.first_token_at - req.submitted_at)
                 self.active[i] = req
                 self.pos[i] = len(req.prompt)
+                # the prefill produced the prompt's KV: ship it onto the
+                # sidecar's PIM pages once, decode grows it in place
+                if self._kv is not None:
+                    self.pim_offload.kv_prefill(req.uid, len(req.prompt))
 
     def _retire(self, i: int):
         req = self.active[i]
@@ -161,6 +269,8 @@ class Server:
         req.finished_at = self.clock.now
         self.completed.append(req)
         self.active[i] = None
+        if self._kv is not None:
+            self.pim_offload.kv_release(req.uid)
         if self.metrics is not None:
             m = self.metrics
             m.counter("serve.requests", unit="requests",
@@ -176,12 +286,17 @@ class Server:
                     / (len(req.out_tokens) - 1))
 
     def step(self):
-        """One serving iteration: admit, batched decode, retire."""
-        t0 = time.time() if self.metrics is not None else 0.0
+        """One serving iteration: fire serve faults, admit, batched
+        decode, retire; count the iteration against the step deadline."""
+        track_wall = self.metrics is not None \
+            or self.step_deadline_s is not None
+        t0 = time.time() if track_wall else 0.0
         self._iter += 1
+        self._apply_serve_faults()
         self._admit()
         live = [i for i in range(self.slots) if self.active[i] is not None]
         if not live:
+            # backing-off requests still count as pending work
             return bool(self.queue)
         toks = np.zeros((self.slots, 1), np.int64)
         for i in live:
@@ -191,7 +306,15 @@ class Server:
             torch.from_numpy(self.pos.astype(np.int64)).to(self.device),
             self.caches, self.cfg, backend=self.backend)
         self.decode_steps += 1
-        self.clock.advance(self.cost.decode_step_s(len(live)))
+        rec = None
+        if self.pim_offload is not None:
+            rec = self.pim_offload.step(
+                len(live),
+                request_ids=[self.active[i].uid for i in live])
+        # the decode iteration's virtual duration: the PIM step's clocked
+        # makespan when a sidecar ran it, else the host decode roofline
+        self.clock.advance(rec.pim_s if rec is not None
+                           else self.cost.decode_step_s(len(live)))
         nxt = torch.argmax(logits, -1).cpu().numpy()
         for i in live:
             req = self.active[i]
@@ -201,18 +324,29 @@ class Server:
             if (len(req.out_tokens) >= req.max_new or hit_eos
                     or int(self.pos[i]) >= self.cache_len - 1):
                 self._retire(i)
-        if self.metrics is not None:
-            self.metrics.histogram(
-                "serve.step_s", unit="s",
-                help="serving-iteration wall time").record(time.time() - t0)
-            self.metrics.gauge(
-                "serve.live_slots", unit="slots",
-                help="slots decoding in the last iteration").set(len(live))
+        if track_wall:
+            wall = time.time() - t0
+            if self.step_deadline_s is not None \
+                    and wall > self.step_deadline_s:
+                self.deadline_misses += 1
+                if self.metrics is not None:
+                    self.metrics.counter(
+                        "serve.deadline_misses", unit="steps",
+                        help="serving iterations over step_deadline_s"
+                    ).inc()
+            if self.metrics is not None:
+                self.metrics.histogram(
+                    "serve.step_s", unit="s",
+                    help="serving-iteration wall time").record(wall)
+                self.metrics.gauge(
+                    "serve.live_slots", unit="slots",
+                    help="slots decoding in the last iteration").set(
+                    len(live))
         return True
 
     def run_until_drained(self, max_iters: int = 10_000,
                           on_undrained: str = "raise"):
-        """Step until every request completes.  If ``max_iters`` runs out
+        """Step until every request completes (or fails permanently).  If ``max_iters`` runs out
         with requests still queued or active, ``on_undrained="raise"``
         (default) raises ``RuntimeError``; ``"warn"`` warns and returns
         the partial results."""
@@ -238,9 +372,8 @@ class Server:
 
     def latency_summary(self) -> Dict:
         """TTFT/TPOT/queue-delay percentile summary over completed
-        requests (virtual seconds by default).  Same keys as the
-        reference's; ``failed``, ``deadline_misses`` and ``retries`` stay
-        0 until fault injection and step deadlines are ported."""
+        requests (virtual seconds by default), with the degradation
+        accounting (all zero on a fault-free run); the reference's keys."""
         ttft = Histogram("serve.ttft_s", unit="s")
         tpot = Histogram("serve.tpot_s", unit="s")
         qdel = Histogram("serve.queue_delay_s", unit="s")
@@ -258,10 +391,10 @@ class Server:
             "tpot_s": _pct_summary(tpot),
             "queue_delay_s": _pct_summary(qdel),
             "undrained": self.undrained,
-            "failed": 0,
+            "failed": len(self.failed_requests),
             "shed": self.shed,
-            "deadline_misses": 0,
-            "retries": 0,
+            "deadline_misses": self.deadline_misses,
+            "retries": self.retries_total,
         }
 
 

@@ -1,7 +1,8 @@
 """K1 (ame_gemm), K2 (ame_elementwise), K3 (flash_attention) and K4
 (ssd_scan) on the card: built from csrc/, held against their plain
-versions, launches counted; and the PIM runtime's numerics on the card
-bit for bit with the same calls on the CPU.  Marked ``gpu``: every test
+versions, launches counted; and the PIM runtime's numerics (and the
+numeric decode offload's) on the card bit for bit with the same calls on
+the CPU.  Marked ``gpu``: every test
 skips with a reason where there is no CUDA device (decided inside the
 fixture, never while the module is imported).  On the card:
 ``python -m pytest -m gpu tests``.
@@ -681,3 +682,72 @@ def test_pim_gemm_on_the_card_is_bit_exact_with_the_cpu(cuda, channels,
     assert torch.equal(o0.view(torch.int16), o1.view(torch.int16))
     assert torch.equal(y0.view(torch.int16), y1.view(torch.int16))
     assert rest0 == rest1
+
+
+# ---------------------------------------------------------------------------
+# the numeric decode offload: on the card, equal to the CPU
+# ---------------------------------------------------------------------------
+
+#: error maxima of a numeric StepRecord on the card against the CPU: both
+#: hold the same FP16 PIM outputs against an FP32 reference summed in
+#: another order (cuBLAS vs the CPU's, TF32 off), and the runtime's FP32
+#: softmax may round a probability one FP16 ulp apart
+OFFLOAD_ERR_TOL = 1e-5
+
+
+def _uids_by_appearance(text):
+    """``text`` with every ``uid=N`` renumbered by first appearance: tensor
+    uids count per process, so two runs in one process label the same
+    tensors with other numbers."""
+    import re
+    seen = {}
+    return re.sub(r"uid=(\d+)", lambda m: "uid=%d" % seen.setdefault(
+        m.group(1), len(seen)), text)
+
+
+@pytest.mark.parametrize("async_mode", [False, True],
+                         ids=["serialized", "async"])
+def test_numeric_offload_on_the_card_matches_the_cpu(cuda, async_mode):
+    """serve_lm's reduced qwen3 sidecar (numeric, KV offload, a channel
+    kill) on the card and on the CPU: logits bit for bit, step records
+    equal (error maxima within OFFLOAD_ERR_TOL and NUMERIC_ATOL), ledgers
+    and command traces byte for byte, and the Chrome traces too once tensor
+    uids are numbered by appearance."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get
+    from repro_torch.obs import export_chrome_trace
+    from repro_torch.runtime import emit_trace
+    from repro_torch.serve.offload import NUMERIC_ATOL, DecodeOffload
+    cfg = get("qwen3-1.7b").reduced().replace(
+        n_layers=4, d_model=256, d_ff=512, vocab_size=1024)
+    runs = []
+    for device in ("cpu", cuda):
+        off = DecodeOffload(cfg, channels=4, stacks=2, numeric=True,
+                            kv_offload=True, async_mode=async_mode,
+                            faults="kill channel 1 @ 30000", device=device)
+        for rid, n in ((0, 20), (1, 140)):
+            off.kv_prefill(rid, n)
+        for _ in range(3):
+            off.step(2, request_ids=[0, 1])
+        assert off.last_logits.device.type == torch.device(device).type
+        runs.append(dict(
+            logits=off.last_logits.cpu(),
+            steps=[dataclasses.asdict(s) for s in off.steps],
+            xfer=[dataclasses.asdict(d.xfer) for d in off.rt.stack],
+            trace=emit_trace(off.rt.stack),
+            chrome=_uids_by_appearance(json.dumps(
+                export_chrome_trace(off.rt))) if async_mode else None,
+            faults=off.rt.faults.counters, kv=off.kv.summary()))
+    cpu, card = runs
+    assert torch.equal(cpu["logits"].view(torch.int16),
+                       card["logits"].view(torch.int16))
+    for a, b in zip(cpu["steps"], card["steps"]):
+        for f in ("numeric_max_err", "logits_max_err", "attn_max_err"):
+            assert b[f] < NUMERIC_ATOL
+            assert abs(a.pop(f) - b.pop(f)) <= OFFLOAD_ERR_TOL, f
+        assert a == b
+    for key in ("xfer", "trace", "chrome", "faults", "kv"):
+        assert cpu[key] == card[key], key
+    assert card["faults"]["channel_failures"] == 1

@@ -23,7 +23,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.serve.loop" in mods and len(mods) >= 15
     assert {"repro_torch.core.engine", "repro_torch.kernels.elementwise",
             "repro_torch.kernels.attention", "repro_torch.runtime.scheduler",
-            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
+            "repro_torch.configs.zamba2_2_7b", "repro_torch.obs.profile",
+            "repro_torch.obs.critical_path", "repro_torch.obs.__main__",
+            "repro_torch.faults.plan", "repro_torch.faults.injector",
+            "repro_torch.serve.offload", "repro_torch.sharding.rules",
+            "repro_torch.configs.mixtral_8x22b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -72,6 +76,22 @@ def test_runtime_does_not_import_the_model_stack_or_the_kernels():
             "'repro_torch.serve', 'repro_torch.kernels')))\n"
             "assert not bad, bad\n"
             "assert 'repro_torch.core.engine' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_obs_and_faults_do_not_import_the_model_stack_or_the_kernels():
+    """``repro_torch.obs`` and ``repro_torch.faults`` sit on the runtime:
+    they import no model, serving or kernel module."""
+    code = ("import sys, repro_torch.obs, repro_torch.faults\n"
+            "import repro_torch.obs.__main__\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.startswith(('repro_torch.models', "
+            "'repro_torch.serve', 'repro_torch.kernels')))\n"
+            "assert not bad, bad\n"
+            "assert 'repro_torch.runtime.scheduler' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

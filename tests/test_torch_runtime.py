@@ -421,10 +421,20 @@ def test_an_explicit_stack_brings_its_own_device():
 
 
 @pytest.mark.parametrize("option", [{"profile": True},
-                                    {"faults": "fail channel 0 @ op 1"}])
+                                    {"faults": "kill channel 0 @ 0"}])
 def test_profile_and_faults_wait_for_their_slice(option):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TR.PIMRuntime(channels=2, device="cpu", **option)
+    """``profile=`` and ``faults=`` attach the port's own profiler and
+    fault injector."""
+    from repro_torch.faults import FaultInjector
+    from repro_torch.obs import Profiler
+    rt = TR.PIMRuntime(channels=2, device="cpu", **option)
+    if "profile" in option:
+        assert isinstance(rt.profile, Profiler) and rt.faults is None
+    else:
+        assert isinstance(rt.faults, FaultInjector) and rt.profile is None
+        _, rep = rt.gemm(np.zeros((64, 32), np.float16),
+                         np.zeros((32, 8), np.float16), execute=False)
+        assert rep.failed_channels == (0,)
 
 
 @pytest.mark.parametrize("call,exc", [

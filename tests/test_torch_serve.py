@@ -4,7 +4,10 @@ A JAX ``Server`` and the port's ``Server`` (``backend="kernel"`` on the
 CPU, so every projection takes the kernel's plain version) get the same
 parameters and the same seeded requests: their greedy tokens must be
 equal, and with the reference's hardware constants their virtual-time
-latency summaries must be ``==``.
+latency summaries must be ``==`` — also with a PIM decode offload
+attached (``pim_offload=``) and serve faults knocking requests out
+(``faults=``), where the retries, failures, sheds and the sidecar's step
+records must be ``==`` too.
 """
 import dataclasses
 
@@ -24,7 +27,9 @@ from repro_torch.models import convert
 from repro_torch.models import model as lm
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.loop import AdmissionError, Request, Server
+from repro_torch.serve.offload import DecodeOffload
 from repro_torch.serve.traffic import HostCostModel
+from test_torch_offload import ERR_FIELDS, ERR_TOL
 
 SLOTS, CACHE_LEN = 2, 40
 
@@ -119,6 +124,122 @@ def test_admission_and_unported_options():
     with pytest.raises(ValueError, match="cache_len"):
         srv.submit(Request(uid=2, prompt=np.zeros(16, np.int32)))
     assert srv.shed == 1
-    for kw in ({"pim_offload": object()}, {"faults": "fail slot 0 @ iter 1"}):
-        with pytest.raises(NotImplementedError):
-            Server(cfg, params, device="cpu", **kw)
+    # the sidecar and serve-fault options construct: the sidecar scales
+    # the admission cap, the serve faults are parsed
+    off = DecodeOffload(cfg, channels=2, device="cpu")
+    srv = Server(cfg, params, device="cpu", pim_offload=off, max_queue=1,
+                 faults="fail slot 0 @ iter 1")
+    assert srv.pim_offload is off and srv.surviving_fraction == 1.0
+    assert [(f.at_iter, f.slot) for f in srv._serve_faults] == [(1, 0)]
+
+
+# ---------------------------------------------------------------------------
+# the PIM decode offload and serve faults
+# ---------------------------------------------------------------------------
+
+#: sidecar and serve options of the degraded serve: a numeric sidecar
+#: with KV offload on 2 x 2 channels that loses one channel, and two slot
+#: knock-outs (one of them twice, past max_retries=1)
+OFFLOAD_KW = dict(channels=2, stacks=2, numeric=True, kv_offload=True,
+                  faults="kill channel 1 @ 20000; flaky link p=0.3")
+SERVE_FAULTS = "fail slot 0 @ iter 3; fail slot 1 @ iter 4; " \
+    "fail slot 0 @ iter 9"
+
+
+def _degraded(make_server, make_offload, cls, cfg, params, vocab, **kw):
+    off = make_offload(cfg)
+    srv = make_server(cfg, params, off)
+    shed = []
+    for req in _requests(cls, vocab):
+        try:
+            srv.submit(req)
+        except Exception as e:              # AdmissionError of either
+            shed.append((req.uid, type(e).__name__))
+    srv.run_until_drained()
+    return srv, off, shed
+
+
+@pytest.fixture(scope="module")
+def degraded():
+    from repro.serve.offload import DecodeOffload as JDecodeOffload
+    jcfg, cfg = jget("qwen3-1.7b").reduced(), get("qwen3-1.7b").reduced()
+    jp = jlm.init(jcfg, jax.random.PRNGKey(0))
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                     device="cpu")
+    common = dict(slots=SLOTS, cache_len=CACHE_LEN, max_queue=4,
+                  max_retries=1, retry_backoff_steps=1,
+                  faults=SERVE_FAULTS)
+    ref = _degraded(
+        lambda c, p, off: JServer(c, p, pim_offload=off, **common),
+        lambda c: JDecodeOffload(c, **OFFLOAD_KW), JRequest, jcfg, jp,
+        cfg.vocab_size)
+    cost = HostCostModel(cfg, peak_flops=jhw.PEAK_FLOPS, hbm_bw=jhw.HBM_BW)
+    port = _degraded(
+        lambda c, p, off: Server(c, p, pim_offload=off, cost=cost,
+                                 backend="kernel", device="cpu",
+                                 metrics=MetricsRegistry(), **common),
+        lambda c: DecodeOffload(c, device="cpu", peak_flops=jhw.PEAK_FLOPS,
+                                hbm_bw=jhw.HBM_BW, **OFFLOAD_KW),
+        Request, cfg, params, cfg.vocab_size)
+    return ref, port
+
+
+def test_offload_and_faults_same_tokens_and_summary(degraded):
+    (jsrv, joff, jshed), (srv, off, shed) = degraded
+    assert shed == jshed and srv.shed == jsrv.shed == len(shed) > 0
+    assert {r.uid: r.out_tokens for r in srv.completed} == \
+        {r.uid: r.out_tokens for r in jsrv.completed}
+    assert [(r.uid, r.retries) for r in srv.failed_requests] == \
+        [(r.uid, r.retries) for r in jsrv.failed_requests] != []
+    assert (srv.retries_total, srv.decode_steps) == \
+        (jsrv.retries_total, len(joff.steps)) and srv.retries_total >= 2
+    assert srv.latency_summary() == jsrv.latency_summary()
+    assert srv.metrics.snapshot()["serve.retries"]["value"] == \
+        srv.retries_total
+
+
+def test_offload_sidecar_steps_equal(degraded):
+    (_, joff, _), (_, off, _) = degraded
+    assert len(off.steps) == len(joff.steps) > 0
+    for a, b in zip(joff.steps, off.steps):
+        da, db = a.to_json(), b.to_json()
+        for f in ERR_FIELDS:       # FP32 references summed in another order
+            assert abs(da.pop(f) - db.pop(f)) <= ERR_TOL, f
+        assert db == da
+    assert off.rt.faults.counters == joff.rt.faults.counters
+    assert off.rt.faults.counters["channel_failures"] == 1
+    assert off.rt.faults.counters["link_retries"] > 0
+    assert len(off.kv._reqs) == len(joff.kv._reqs) == 0
+    assert off.surviving_fraction == joff.surviving_fraction == 0.75
+
+
+def _tiny_server(**kw):
+    cfg = get("qwen3-1.7b").reduced().replace(n_layers=1)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return Server(cfg, params, slots=1, cache_len=16, device="cpu", **kw)
+
+
+def test_step_deadline_counts_misses():
+    srv = _tiny_server(step_deadline_s=0.0)
+    srv.submit(Request(uid=0, prompt=np.zeros(4, np.int32), max_new=3))
+    srv.run_until_drained()
+    assert srv.deadline_misses == srv.decode_steps > 0
+    assert srv.latency_summary()["deadline_misses"] == srv.deadline_misses
+    generous = _tiny_server(step_deadline_s=1e9)
+    generous.submit(Request(uid=0, prompt=np.zeros(4, np.int32), max_new=3))
+    generous.run_until_drained()
+    assert generous.deadline_misses == 0
+
+
+def test_admission_cap_scales_with_surviving_capacity():
+    off = DecodeOffload(get("qwen3-1.7b").reduced().replace(n_layers=1),
+                        channels=2, stacks=2, faults="kill stack 1 @ 0",
+                        device="cpu")
+    # the fault fired at the first op boundary, the weights' placement
+    srv = _tiny_server(max_queue=4, pim_offload=off)
+    assert srv.surviving_fraction == off.surviving_fraction == 0.5
+    srv.submit(Request(uid=0, prompt=np.zeros(4, np.int32)))
+    srv.submit(Request(uid=1, prompt=np.zeros(4, np.int32)))
+    with pytest.raises(AdmissionError, match="cap 2"):   # 4 x 0.5
+        srv.submit(Request(uid=2, prompt=np.zeros(4, np.int32)))
+    assert srv.shed == 1
