@@ -17,7 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
 3. kernels — hold K1 (ame_gemm) against its plain version at the main
              paths' shapes (qwen3-1.7b, mamba2-370m and zamba2-2.7b
              projections at m = 1, 4, 64 and, for the SSM and hybrid
-             models, 300) and the ragged test shapes;
+             models, 300; mixtral-8x22b's attention and deepseek-v3-671b's
+             MLA, dense MLP and shared-expert projections at m = 4 and 64)
+             and the ragged test shapes;
              every main-path shape must take the tensor-core variant, and
              each line names the variant it took; time the kernel and
              torch.matmul (the library yardstick, which the port never
@@ -73,12 +75,20 @@ Phases (any failure exits non-zero and prints no result line):
              prefill of more than one token; 162 K1 per zamba2 forward
              (54 x 2 mamba projections + 9 x 6 shared-block projections)
              and 54 K4 per zamba2 prefill of more than one token; every K4
-             launch on its mma variant.  One prompt's prefill logits are
-             held against ``backend="torch"``; a warm decode step (and, for
-             mamba and zamba2, a 300-token prefill) is timed and profiled,
-             with zamba2's per-application LoRA merge profiled on its own;
-             a reduced model on the card is held against the same model on
-             the CPU.
+             launch on its mma variant.  Then mixtral-8x22b (cut to 8 of
+             56 layers) and deepseek-v3-671b (cut to 4 of 61 layers: its 3
+             dense layers and 1 MoE layer) at full width, bf16 weights:
+             32 K1 launches per forward each (mixtral 8 x 4 attention
+             projections; deepseek 3 x 8 dense-layer and 1 x 8 MoE-layer
+             projections), every K1 launch of every serve on its mma
+             variant.  One prompt's prefill logits are held against
+             ``backend="torch"`` (for the MoE models with the share of
+             (token, layer) expert choices the two backends agree on); a
+             warm decode step (and, for mamba and zamba2, a 300-token
+             prefill) is timed and profiled, with zamba2's per-application
+             LoRA merge and one MoE layer's router, dispatch, expert and
+             combine products timed on their own; a reduced model on the
+             card is held against the same model on the CPU.
 11. offload — the serve path's PIM decode offload, with obs and faults:
              full-width qwen3-1.7b served through ``Server(backend=
              "kernel", pim_offload=DecodeOffload(16 channels x 4 stacks,
@@ -101,11 +111,20 @@ Phases (any failure exits non-zero and prints no result line):
              from the port alone with the reference's setups
              (benchmarks/paper_figures.py).  Modeled Aquabolt-XL cycles;
              the wall times are the card host's.
-12. report — fail if any device time reads below its bound; one JSON
+12. traffic — results/BENCH_runtime.json's serve section (the
+             qwen3-1.7b and mixtral-8x22b SLO frontiers, disaggregated vs
+             colocated, their knees and the bursty point) through the
+             port's TrafficServer with the reference's host constants,
+             exactly; then the same frontiers with the H100 descriptor
+             (repro_torch/launch/hw.py), a modeled result.  Host only, in
+             a separate process while phases 3-11 run on the card.
+13. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
+import concurrent.futures
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -164,6 +183,20 @@ SERVE_LOGITS_ATOL = {"qwen3-1.7b": 0.25, "mamba2-370m": 0.5}
 #: no further from the f32 result than the plain run is, the two bf16 runs
 #: are at most twice that distance apart (triangle inequality).
 SERVE_LOGITS_NOISE_FACTOR = {"zamba2-2.7b": 2.0}
+#: mixtral-8x22b and deepseek-v3-671b take the same rule, fixed before
+#: their first card run: their seeded expert routing is a discrete choice
+#: on bf16-rounded router inputs, so a bf16 run may send a token to
+#: another expert than the f32 run does, and the plain path's own
+#: bf16-vs-f32 distance measures that noise on the same prompt as well
+SERVE_LOGITS_NOISE_FACTOR.update({"mixtral-8x22b": 2.0,
+                                  "deepseek-v3-671b": 2.0})
+#: depth of the full-width MoE serves: the most layers whose bf16 weights
+#: (mixtral 8 layers: 20,435,146,752 parameters, 38.06 GiB; deepseek 4:
+#: its 3 dense layers and one MoE layer, 15,162,488,832, 28.24 GiB) leave
+#: room on one 80 GB card for the f32 logits check's transient casts of a
+#: whole expert bank (deepseek's 256 x 7168 x 2048 wi alone is 15 GB in
+#: f32); the full models hold 56 and 61 layers
+SERVE_DEPTH = {"mixtral-8x22b": 8, "deepseek-v3-671b": 4}
 #: zamba2's seeded lora_b, N(0, LORA_B_STD^2): the merged LoRA term
 #: lora_a @ lora_b then has 8 x 0.02 = 0.16 of in_proj's std
 LORA_B_STD = 0.02
@@ -176,7 +209,8 @@ SLOTS, MAX_NEW, N_REQUESTS = 4, 16, 6
 LONG_PROMPT = 300
 #: cache positions per slot: qwen3's and zamba2's KV caches; mamba's
 #: prompts must fit under it too (its recurrent state does not grow)
-CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512, "zamba2-2.7b": 512}
+CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512, "zamba2-2.7b": 512,
+             "mixtral-8x22b": 128, "deepseek-v3-671b": 128}
 #: quickstart part 2's GEMM
 RUNTIME_GEMM = (256, 192, 96)
 #: the modeled cluster values the runtime must reproduce (``cluster``)
@@ -205,6 +239,8 @@ OFFLOAD_ERR_TOL = 1e-5
 #: the reference's host constants (TPU v5e: repro/launch/hw.py), which the
 #: committed dump was priced with
 REF_PEAK_FLOPS, REF_HBM_BW = 197e12, 819e9
+#: requests of each load point of the serve frontier (serve_sweep's N_REQ)
+TRAFFIC_REQUESTS = 250
 
 
 def log(msg: str) -> None:
@@ -311,7 +347,10 @@ def phase_build():
 def k1_layer(cfg):
     """(name, k, n) of the K1 calls of one layer of ``cfg``; for the
     hybrid, one mamba layer's (``mamba:``) and one shared block's
-    (``shared:``)."""
+    (``shared:``); for an MoE model with leading dense layers (deepseek),
+    one dense layer's (``dense:``) and one MoE layer's (``moe:``).  An MoE
+    layer's K1 calls are its attention's and its shared experts' MLP: the
+    router and the expert banks are plain products, as in the reference."""
     d = cfg.d_model
     if cfg.ssm is not None:
         from repro_torch.models import ssm
@@ -319,36 +358,61 @@ def k1_layer(cfg):
         mamba = [("in_proj", d, d_proj), ("out_proj", d_inner, d)]
         if cfg.family == "ssm":
             return mamba
-    hd = cfg.head_dim_
-    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    block = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
-             ("wi", d, cfg.d_ff)]
-    if cfg.act in ("swiglu", "geglu"):
-        block.append(("wg", d, cfg.d_ff))
-    block.append(("mlp.wo", cfg.d_ff, d))
+    if cfg.mla is not None:
+        m, h = cfg.mla, cfg.n_heads
+        attn = [("wdq", d, m.q_lora_rank),
+                ("wuq", m.q_lora_rank, h * (m.qk_nope_dim + m.qk_rope_dim)),
+                ("wdkv", d, m.kv_lora_rank), ("wkr", d, m.qk_rope_dim),
+                ("wo", h * m.v_head_dim, d)]
+    else:
+        hd = cfg.head_dim_
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        attn = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
+
+    def mlp(f, prefix=""):
+        gate = [(f"{prefix}wg", d, f)] if cfg.act in ("swiglu", "geglu") \
+            else []
+        return [(f"{prefix}wi", d, f)] + gate + [(f"{prefix or 'mlp.'}wo",
+                                                  f, d)]
+    block = attn + mlp(cfg.d_ff)
     if cfg.family == "hybrid":
         return [(f"mamba:{nm}", k, n) for nm, k, n in mamba] \
             + [(f"shared:{nm}", k, n) for nm, k, n in block]
-    return block
+    if cfg.moe is None:
+        return block
+    moe_layer = attn + (mlp(cfg.moe.d_ff_expert * cfg.moe.n_shared,
+                            "shared.") if cfg.moe.n_shared else [])
+    if not cfg.moe.first_dense_layers:
+        return moe_layer
+    return [(f"dense:{nm}", k, n) for nm, k, n in block] \
+        + [(f"moe:{nm}", k, n) for nm, k, n in moe_layer]
 
 
 def k1_per_forward(cfg):
     """K1 launches of one forward: every layer's calls; for the hybrid,
-    every mamba layer's two and each shared-block application's."""
+    every mamba layer's two and each shared-block application's; for an
+    MoE model with leading dense layers, each dense and each MoE layer's."""
     calls = k1_layer(cfg)
-    if cfg.family != "hybrid":
-        return len(calls) * cfg.n_layers
-    groups = cfg.n_layers // cfg.hybrid.shared_every
-    mamba = sum(nm.startswith("mamba:") for nm, _, _ in calls)
-    return mamba * cfg.n_layers + (len(calls) - mamba) * groups
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.hybrid.shared_every
+        mamba = sum(nm.startswith("mamba:") for nm, _, _ in calls)
+        return mamba * cfg.n_layers + (len(calls) - mamba) * groups
+    dense = sum(nm.startswith("dense:") for nm, _, _ in calls)
+    if dense:
+        fd = min(cfg.moe.first_dense_layers, cfg.n_layers)
+        return dense * fd + (len(calls) - dense) * (cfg.n_layers - fd)
+    return len(calls) * cfg.n_layers
 
 
 def k1_shapes(cfg):
     """(name, m, k, n) of one layer's K1 calls, per M: one token (m = 1),
     a decode step of SLOTS slots, a prompt of 64 tokens, and for the SSM
-    and hybrid models the LONG_PROMPT-token prefill."""
+    and hybrid models the LONG_PROMPT-token prefill.  The MoE models take
+    their serve's own: the decode step and the longest prompt."""
     m_values = (1, SLOTS, 64) + ((LONG_PROMPT,) if cfg.ssm is not None
                                  else ())
+    if cfg.moe is not None:
+        m_values = (SLOTS, 64)
     return [(nm, m, k, n) for m in m_values for nm, k, n in k1_layer(cfg)]
 
 
@@ -1121,6 +1185,7 @@ def phase_serve(cfg, dev):
     """Serve seeded requests at full width through the kernels; returns
     the serve summary with each kernel's launches on this path."""
     import torch
+    from repro_torch.configs import get
     from repro_torch.kernels import ame_gemm as k1
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.models import model as lm
@@ -1136,9 +1201,14 @@ def phase_serve(cfg, dev):
                  backend="kernel", device=dev)
     torch.cuda.synchronize()
     n_params = lm.param_count(params)
+    full_layers = get(cfg.name).n_layers
+    cut = (f", cut to {cfg.n_layers} of {full_layers} layers at full "
+           f"width" if cfg.n_layers < full_layers else "")
     log(f"[serve] {cfg.name}: {n_params:,} parameters ({cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}, compute {cfg.policy.compute_dtype}) "
-        f"ready in {time.perf_counter() - t0:.1f}s")
+        f"layers{cut}, d_model {cfg.d_model}, params "
+        f"{cfg.policy.param_dtype}, compute {cfg.policy.compute_dtype}) "
+        f"ready in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     prompts = _prompts(cfg)
     reqs = [Request(uid=u, prompt=p, max_new=MAX_NEW)
             for u, p in enumerate(prompts)]
@@ -1147,6 +1217,7 @@ def phase_serve(cfg, dev):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     k1.launches = k4.launches = 0                     # main path starts
+    k1.launches_by_variant.update(mma=0, fma=0)
     k4.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
     done = srv.run_until_drained()
@@ -1154,6 +1225,7 @@ def phase_serve(cfg, dev):
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
                 "ssd_scan": k4.launches}
+    k1_variants = dict(k1.launches_by_variant)
     k4_variants = dict(k4.launches_by_variant)
     tokens = sum(len(r.out_tokens) for r in done)
     forwards = srv.prefills + srv.decode_steps
@@ -1166,17 +1238,17 @@ def phase_serve(cfg, dev):
         f"(synchronised), {tokens / wall:.1f} tok/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for name, n in launches.items():
-        log(f"[serve] {name} launches: {n} (expected {want[name]})"
-            + (f", by variant {k4_variants}" if name == "ssd_scan" else ""))
+        log(f"[serve] {name} launches: {n} (expected {want[name]}), by "
+            f"variant {k4_variants if name == 'ssd_scan' else k1_variants}")
     if len(done) != N_REQUESTS:
         raise AssertionError(f"{len(done)} of {N_REQUESTS} requests served")
     if launches != want or launches["ame_gemm"] == 0 \
             or (scan and launches["ssd_scan"] == 0):
         raise AssertionError("the main path did not go through the kernels "
                              "once per projection / per layer's scan")
-    if k4_variants["fma"]:
-        raise AssertionError(f"a K4 launch of the serve took the fma "
-                             f"variant: {k4_variants}")
+    if k4_variants["fma"] or k1_variants["fma"]:
+        raise AssertionError(f"a K1 or K4 launch of the serve took the fma "
+                             f"variant: K1 {k1_variants}, K4 {k4_variants}")
     for r in done:
         if not (1 <= len(r.out_tokens) <= MAX_NEW
                 and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -1188,10 +1260,11 @@ def phase_serve(cfg, dev):
     toks = {"tokens": torch.as_tensor(prompt[None], dtype=torch.long,
                                       device=dev)}
     cfg32 = cfg.with_policy(compute_dtype="float32")
-    logits = {}
+    logits, routes = {}, {}
     for compute, c, p in (("bf16", cfg, srv.params), ("f32", cfg32, params)):
         for be in ("kernel", "torch"):
-            lg, _ = lm.prefill(p, toks, c, cache_len, backend=be)
+            with recorded_routes() as routes[compute, be]:
+                lg, _ = lm.prefill(p, toks, c, cache_len, backend=be)
             logits[compute, be] = lg[:, :cfg.vocab_size].float()
     if any(lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all()
            for lg in logits.values()):
@@ -1217,6 +1290,16 @@ def phase_serve(cfg, dev):
         f"logits max |x| {float(lt.abs().max()):.3g}; argmax "
         f"{int(lk.argmax())} vs {int(lt.argmax())}; torch bf16 vs f32 "
         f"compute {noise:.4g}, kernel bf16 vs torch f32 {kernel_noise:.4g}")
+    if cfg.moe is not None:
+        shares = [route_agreement(routes[a], routes[b]) for a, b in (
+            (("f32", "kernel"), ("f32", "torch")),
+            (("bf16", "kernel"), ("bf16", "torch")),
+            (("bf16", "torch"), ("f32", "torch")))]
+        log(f"[serve] {len(prompt)}-token prefill expert choices: share of "
+            f"(token, layer) pairs whose top-{cfg.moe.top_k} expert set "
+            f"agrees, over {len(routes['f32', 'kernel'])} MoE layers: kernel "
+            f"vs torch {shares[0]:.4f} in f32 compute, {shares[1]:.4f} in "
+            f"bf16; torch bf16 vs torch f32 {shares[2]:.4f}")
     if not ok32 or not err <= tol:
         raise AssertionError("kernel and torch backends disagree")
     phase_breakdown(cfg, srv.params, dev)
@@ -1224,12 +1307,44 @@ def phase_serve(cfg, dev):
         phase_prefill_breakdown(cfg, srv.params, dev, prompt)
     if cfg.family == "hybrid":
         phase_lora_merge(cfg, srv.params)
+    if cfg.moe is not None:
+        phase_moe_split(cfg, srv.params, dev)
     del params, srv
     torch.cuda.empty_cache()
     return dict(requests=len(done), tokens=tokens, wall_s=wall,
                 params=n_params, launches=launches, bf16_err=err,
                 bf16_limit=tol,
                 out_tokens={r.uid: list(r.out_tokens) for r in done})
+
+
+class recorded_routes:
+    """Within the block, every MoE layer's top-k expert indices, one
+    (tokens, k) tensor per layer call, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._top_k = moe, moe.top_k
+        self.calls = []
+
+        def top_k(probs, k):
+            vals, idx = self._top_k(probs, k)
+            self.calls.append(idx.reshape(-1, k).sort(-1).values.cpu())
+            return vals, idx
+        moe.top_k = top_k
+        return self.calls
+
+    def __exit__(self, *exc):
+        self._moe.top_k = self._top_k
+        return False
+
+
+def route_agreement(a, b):
+    """Share of (token, layer) pairs whose sets of chosen experts agree
+    (1.0 for a model without MoE layers)."""
+    if not a:
+        return 1.0
+    same = sum(int((x == y).all(-1).sum()) for x, y in zip(a, b))
+    return same / sum(x.shape[0] for x in a)
 
 
 def _profile(fn):
@@ -1361,6 +1476,56 @@ def phase_lora_merge(cfg, params, steps=5):
         f"{hw.HBM_BW / 1e12:.2f} TB/s")
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
         log(f"[breakdown]   LoRA merge kernel {v:8.3f} ms  {k[:100]}")
+
+
+def phase_moe_split(cfg, params, dev, iters=20):
+    """Where one MoE layer's non-K1 time goes at the decode step's shapes
+    (M = SLOTS tokens, one group): the router product, the dispatch
+    einsum, the expert-bank einsums (wi, wg, silu-gate, wo) and the
+    combine einsum, each captured alone in a CUDA graph and replayed on
+    the first MoE layer's weights, beside the bytes of its expert bank."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.launch import hw
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer
+
+    m = cfg.moe
+    cd = cfg.compute_dtype_()
+    lp = layer(params["stack"]["moe_stack"]["moe"], 0)
+    w = lp["experts"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xg = torch.randn((1, SLOTS, cfg.d_model), generator=gen,
+                     device=dev).to(cd)
+    cap = max(int(m.capacity_factor * SLOTS * m.top_k / m.num_experts), 1)
+    logits = torch.matmul(xg, lp["router"]["w"]).float()
+    combine, _ = moe.route(logits, cfg, cap, cd)
+    dispatch = (combine > 0).to(cd)
+    buf = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+
+    def experts():
+        h = torch.einsum("egcd,edf->egcf", buf, w["wi"])
+        hg = torch.einsum("egcd,edf->egcf", buf, w["wg"])
+        return torch.einsum("egcf,efd->egcd", F.silu(hg) * h, w["wo"])
+    out = experts()
+    parts = {
+        "router": lambda: torch.matmul(xg, lp["router"]["w"]),
+        "dispatch einsum": lambda: torch.einsum("gsec,gsd->egcd", dispatch,
+                                                xg),
+        "expert einsums": experts,
+        "combine einsum": lambda: torch.einsum("gsec,egcd->gsd", combine,
+                                               out),
+    }
+    n_moe = cfg.n_layers - min(m.first_dense_layers, cfg.n_layers)
+    bank = sum(t.numel() * t.element_size() for t in w.values())
+    times = {name: device_ms(fn, [()], iters) for name, fn in parts.items()}
+    log(f"[breakdown] {cfg.name} one MoE layer at decode (M={SLOTS}, "
+        f"{m.num_experts} experts x capacity {cap}), device ms by CUDA-graph "
+        f"replay: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; x {n_moe} MoE layer(s) a step: "
+        f"{n_moe * sum(times.values()):.3f} ms; the expert bank "
+        f"({bank / 1e9:.3f} GB) reads in {1e3 * bank / hw.HBM_BW:.3f} ms "
+        f"at {hw.HBM_BW / 1e12:.2f} TB/s")
 
 
 def phase_small_reference(cfg_full, dev, prompt_t):
@@ -1738,6 +1903,138 @@ def phase_offload_values(dev, tmp_dir):
                              "offload values")
 
 
+def serve_frontier(name, off, hw_kw, step_costs):
+    """One model's SLO frontier as benchmarks/paper_figures.py:serve_sweep
+    builds it: six Poisson loads (0.25..1.0 x the analytic capacity) of
+    TRAFFIC_REQUESTS requests, prompts balanced so one request's prefill
+    work matches its decode work, both phase layouts, and each layout's
+    knee.  ``hw_kw`` prices the host (empty: the H100 descriptor);
+    ``off`` and ``step_costs`` price the PIM decode steps, which do not
+    depend on it.  Returns the frontier and the 0.55x Poisson and bursty
+    summaries, disaggregated."""
+    from repro_torch.serve.loop import TrafficServer
+    from repro_torch.serve.traffic import (SLO, HostCostModel, bursty_trace,
+                                           poisson_trace)
+    slots, max_new, chunk, seed = 8, 16, 2048, 7
+    cost = HostCostModel(off.cfg, **hw_kw)
+    if slots not in step_costs:
+        probe = off.step(slots)
+        step_costs[slots] = (probe.pim_s, probe.h2d_bytes)
+    step_s = step_costs[slots][0]
+    d_req = max_new * step_s / slots
+    per_tok = cost.flops_per_token / cost.peak_flops
+    prompt = max(512, int(round(d_req / per_tok / 256)) * 256)
+    p_req = cost.prefill_s(prompt)
+    cap = 1.0 / max(p_req, d_req)
+    slo = SLO(ttft_s=4 * p_req, tpot_s=1.3 * step_s)
+
+    def run(trace, dis):
+        srv = TrafficServer(off, slots=slots, disaggregate=dis,
+                            chunk_tokens=chunk, slo=slo, cost=cost,
+                            step_costs=step_costs)
+        srv.run(trace)
+        return srv.latency_summary()
+    points = []
+    for mult in (0.25, 0.4, 0.55, 0.7, 0.85, 1.0):
+        tr = poisson_trace(mult * cap, TRAFFIC_REQUESTS, seed=seed,
+                           prompt_len=prompt, max_new=max_new)
+        pt = {"load": mult, "rate_rps": round(mult * cap, 4)}
+        for label, dis in (("disagg", True), ("colocated", False)):
+            s = run(tr, dis)
+            pt[label] = {
+                "goodput_rps": round(s["goodput_rps"], 4),
+                "throughput_rps": round(s["throughput_rps"], 4),
+                "slo_attainment": round(s["slo_attainment"], 4),
+                **{f"{m}_{p}_s": round(s[f"{m}_s"][p], 4)
+                   for m in ("ttft", "tpot") for p in ("p50", "p99")}}
+        points.append(pt)
+
+    def knee(label):
+        ok = [p for p in points if p[label]["slo_attainment"] >= 0.9]
+        return max(ok or points, key=lambda p: p[label]["goodput_rps"])
+    kd, kc = knee("disagg"), knee("colocated")
+    gp_d, gp_c = kd["disagg"]["goodput_rps"], kc["colocated"]["goodput_rps"]
+    frontier = {
+        "prompt_len": prompt, "max_new": max_new, "slots": slots,
+        "capacity_rps": round(cap, 4),
+        "slo": {"ttft_s": round(slo.ttft_s, 4),
+                "tpot_s": round(slo.tpot_s, 4)},
+        "points": points,
+        "knee": {"disagg_load": kd["load"], "colocated_load": kc["load"],
+                 "disagg_goodput_rps": gp_d, "colocated_goodput_rps": gp_c,
+                 "goodput_ratio": round(gp_d / max(gp_c, 1e-12), 4)}}
+    at55 = {kind: run(mk(0.55 * cap, TRAFFIC_REQUESTS, seed=seed,
+                         prompt_len=prompt, max_new=max_new), True)
+            for kind, mk in (("poisson", poisson_trace),
+                             ("bursty", lambda *a, **kw: bursty_trace(
+                                 *a, cv=2.0, **kw)))}
+    return frontier, at55
+
+
+def phase_traffic():
+    """results/BENCH_runtime.json's serve section from the port alone, with
+    the reference's host constants, then the same frontiers with the H100
+    descriptor (modeled).  Host only: runs in its own process while the
+    card works, and returns its log lines."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get
+    from repro_torch.serve.offload import DecodeOffload
+
+    t0 = time.perf_counter()
+    want = json.loads(BENCH_RUNTIME.read_text())["serve"]
+    offs = {name: (DecodeOffload(get(name), channels=16, device="cpu"), {})
+            for name in ("qwen3-1.7b", "mixtral-8x22b")}
+    lines = []
+    for label, hw_kw in (("reference constants (TPU v5e host: 197 TFLOP/s, "
+                          "819 GB/s)", {"peak_flops": REF_PEAK_FLOPS,
+                                        "hbm_bw": REF_HBM_BW}),
+                         ("MODELED with the H100 descriptor "
+                          "(repro_torch/launch/hw.py: 989 TFLOP/s, "
+                          "3.35 TB/s)", {})):
+        frontier, at55 = {}, {}
+        for name, (off, costs) in offs.items():
+            frontier[name], at55[name] = serve_frontier(name, off, hw_kw,
+                                                        costs)
+            f = frontier[name]
+            lines.append(
+                f"[traffic] {label}: {name} prompt {f['prompt_len']}, "
+                f"capacity {f['capacity_rps']} rps, SLO ttft "
+                f"{f['slo']['ttft_s']} s tpot {f['slo']['tpot_s']} s; "
+                f"knee disagg {f['knee']['disagg_goodput_rps']} rps "
+                f"@x{f['knee']['disagg_load']} vs colocated "
+                f"{f['knee']['colocated_goodput_rps']} rps "
+                f"@x{f['knee']['colocated_load']}: ratio "
+                f"{f['knee']['goodput_ratio']}")
+            lines.append(f"[traffic]   {name} goodput rps disagg / colocated "
+                         f"(attainment) by load: " + "; ".join(
+                             f"x{p['load']} {p['disagg']['goodput_rps']} "
+                             f"({p['disagg']['slo_attainment']}) / "
+                             f"{p['colocated']['goodput_rps']} "
+                             f"({p['colocated']['slo_attainment']})"
+                             for p in f["points"]))
+        ratio = min(f["knee"]["goodput_ratio"] for f in frontier.values())
+        q = at55["qwen3-1.7b"]
+        bursty = {"load": 0.55, "cv": 2.0,
+                  "goodput_rps": round(q["bursty"]["goodput_rps"], 4),
+                  "poisson_goodput_rps": round(q["poisson"]["goodput_rps"],
+                                               4),
+                  "slo_attainment": round(q["bursty"]["slo_attainment"], 4),
+                  "ttft_p99_s": round(q["bursty"]["ttft_s"]["p99"], 4)}
+        lines.append(f"[traffic] {label}: disagg_vs_colo_goodput {ratio}; "
+                     f"qwen3-1.7b bursty cv=2 @0.55x {bursty}")
+        if hw_kw:
+            same = (frontier == want["frontier"], bursty == want["bursty"],
+                    ratio == want["disagg_vs_colo_goodput"])
+            lines.append(f"[traffic] BENCH_runtime.json serve section "
+                         f"reproduced (frontiers, bursty, ratio): {same}")
+            if not all(same):
+                raise AssertionError(f"the port's serve frontier differs "
+                                     f"from BENCH_runtime.json: {same}")
+    lines.append(f"[traffic] {time.perf_counter() - t0:.1f}s of host time "
+                 f"in its own process")
+    return lines
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1846,14 +2143,34 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
 
 def main() -> int:
     name, _ = phase_device()
+    # the traffic phase is host work only: it runs in its own process
+    # while the card phases run, and its lines print after them
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        traffic = pool.submit(phase_traffic)
+        records = phases_on_card(name)
+        for line in traffic.result():
+            log(line)
+    import torch
+    print(json.dumps(kernels_line(*records)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phases_on_card(name):
+    """Phases 2-11 and the bounds check; returns kernels_line's inputs."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs import get
     qwen, mamba = get("qwen3-1.7b"), get("mamba2-370m")
     zamba = get("zamba2-2.7b")
+    mixtral, deepseek = (get(n).replace(n_layers=SERVE_DEPTH[n])
+                         for n in ("mixtral-8x22b", "deepseek-v3-671b"))
     phase_build()
     dev = torch.device("cuda", torch.cuda.current_device())
-    k1_records = phase_kernels([qwen, mamba, zamba])
+    k1_records = phase_kernels([qwen, mamba, zamba, mixtral, deepseek])
     k4_records = phase_ssd([mamba, zamba])
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
@@ -1862,7 +2179,8 @@ def main() -> int:
     ops_launches = phase_ops(dev)
     torch.cuda.empty_cache()
     serves = {}
-    for cfg, small_prompt in ((qwen, 16), (mamba, 40), (zamba, 40)):
+    for cfg, small_prompt in ((qwen, 16), (mamba, 40), (zamba, 40),
+                              (mixtral, 16), (deepseek, 16)):
         serves[cfg.name] = phase_serve(cfg, dev)
         phase_small_reference(cfg, dev, small_prompt)
     serves["qwen3-1.7b+offload"] = {"launches": phase_offload_serve(
@@ -1872,13 +2190,8 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     phase_offload_values(dev, out_dir)
     check_bounds(k1_records + k4_records + k2_records + k3_records)
-    print(json.dumps(kernels_line(k1_records, k4_records, k2_records,
-                                  k3_records, serves, ops_launches)),
-          flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return k1_records, k4_records, k2_records, k3_records, serves, \
+        ops_launches
 
 
 if __name__ == "__main__":

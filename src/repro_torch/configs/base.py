@@ -2,12 +2,14 @@
 
 The dataclasses keep the reference's fields and defaults, so a config of
 either package can be compared field by field; only the dtype accessors
-differ, returning ``torch`` dtypes.
+differ, returning ``torch`` dtypes.  :func:`input_specs` stands each model
+input in as a tensor on the meta device (shape and dtype, no storage),
+where the reference uses ``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -112,6 +114,19 @@ class ArchConfig:
         """Vocab rounded up to a multiple of 256 (as the reference)."""
         return -(-self.vocab_size // 256) * 256
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def quadratic_attention(self) -> bool:
+        """True if the arch has no sub-quadratic path for 500k context."""
+        if self.family in ("ssm",):
+            return False
+        if self.hybrid is not None:
+            return False            # mamba backbone + sparse shared attn
+        return self.sliding_window == 0
+
     def compute_dtype_(self) -> torch.dtype:
         return torch.bfloat16 if self.policy.compute_dtype == "bfloat16" \
             else torch.float32
@@ -162,6 +177,79 @@ class ArchConfig:
         return self.replace(**kw)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (assigned grid)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train|prefill|decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether this (arch x shape) cell runs, and why not if skipped."""
+    if cfg.encoder_only and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and cfg.quadratic_attention:
+        return False, "full quadratic attention at 500k context"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                reduced: bool = False) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins (shape and dtype, no storage) for every model
+    input of this cell.
+
+    Modality frontends are stubs, as in the reference: vision supplies
+    precomputed patch embeddings, audio precomputed frame embeddings.
+    """
+    b, t = shape.global_batch, shape.seq_len
+    if reduced:
+        b, t = min(b, 2), min(t, 64)
+    i32, f = torch.int32, cfg.compute_dtype_()
+    d = cfg.d_model
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        if cfg.modality == "audio_frames":
+            return {"frames": spec((b, t, d), f),
+                    "mask": spec((b, t), torch.bool),
+                    "targets": spec((b, t), i32)}
+        tt = t
+        out = {}
+        if cfg.modality == "vision_text":
+            npatch = max(t // 4, 16)
+            tt = t - npatch
+            out["vision_embeds"] = spec((b, npatch, d), f)
+        out.update(tokens=spec((b, tt), i32), targets=spec((b, tt), i32),
+                   loss_mask=spec((b, tt), f))
+        return out
+    if shape.kind == "prefill":
+        if cfg.modality == "audio_frames":
+            return {"frames": spec((b, t, d), f)}
+        if cfg.modality == "vision_text":
+            npatch = max(t // 4, 16)
+            return {"tokens": spec((b, t - npatch), i32),
+                    "vision_embeds": spec((b, npatch, d), f)}
+        return {"tokens": spec((b, t), i32)}
+    # decode: one new token against a cache of length t
+    return {"tokens": spec((b, 1), i32), "positions": spec((b,), i32)}
+
+
 #: registry, populated by the per-arch modules
 ARCHS: Dict[str, ArchConfig] = {}
 
@@ -174,3 +262,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get(name: str) -> ArchConfig:
     import repro_torch.configs  # noqa: F401  (triggers per-arch registration)
     return ARCHS[name]
+
+
+def all_names():
+    import repro_torch.configs  # noqa: F401
+    return sorted(ARCHS)

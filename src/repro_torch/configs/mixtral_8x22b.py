@@ -1,10 +1,8 @@
 """mixtral-8x22b [moe] — 56L d_model=6144 48H (GQA kv=8) d_ff=16384
 vocab=32768; 8 experts top-2, SWA.  [arXiv:2401.04088; hf]
 
-The reference's config, field for field.  The port serves no MoE model
-yet (``models/model.py`` refuses the family); the decode offload's
-routed-MoE half (:class:`repro_torch.serve.offload.DecodeOffload` with
-``routing=``) runs on it.
+The reference's config, field for field: every layer's MLP is a bank of
+8 experts (top-2, d_ff 16384), attention has a 4096-token sliding window.
 """
 from repro_torch.configs.base import ArchConfig, MoEConfig, Policy, register
 

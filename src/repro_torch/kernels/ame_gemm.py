@@ -58,6 +58,8 @@ MMA_DTYPES = (torch.bfloat16, torch.float16)
 #: kernel launches since the last reset (the wrapper adds one per launch,
 #: of either variant)
 launches = 0
+#: the same launches by variant
+launches_by_variant = {"mma": 0, "fma": 0}
 
 _fns = {}
 
@@ -163,6 +165,7 @@ def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
                            f"at (m,k,n)={(m, k, n)} {a.dtype}->{out_dtype} "
                            f"block {blocks}")
     launches += 1
+    launches_by_variant[kind] += 1
     return out
 
 

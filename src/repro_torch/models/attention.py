@@ -1,6 +1,6 @@
-"""Attention: GQA/MQA, qk-norm, RoPE, sliding windows, KV caches.
+"""Attention: GQA/MQA, qk-norm, RoPE, sliding windows, MLA, KV caches.
 
-Port of ``repro.models.attention`` (MLA waits for its slice).  The
+Port of ``repro.models.attention``.  The
 reference computes this attention in plain jnp outside any Pallas kernel,
 so plain PyTorch is its faithful counterpart: an outer loop over query
 chunks wraps an inner online-softmax loop over KV chunks, so the largest
@@ -171,4 +171,90 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
             chunk=chunk, q_offset=pos, kv_positions=cache["pos"],
             kv_valid=kv_valid if window else None)
     y = dense(p["wo"], out.reshape(b, t, h * hd), backend)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank q/kv with compressed latent cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ArchConfig, dtype, device, layers: int = 0):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(dtype=dtype, device=device, layers=layers)
+    return {
+        "wdq": dense_init(gen, d, m.q_lora_rank, **kw),
+        "qnorm": norm_init(m.q_lora_rank, dtype, device, layers=layers),
+        "wuq": dense_init(gen, m.q_lora_rank, h * qd, **kw),
+        "wdkv": dense_init(gen, d, m.kv_lora_rank, **kw),
+        "kvnorm": norm_init(m.kv_lora_rank, dtype, device, layers=layers),
+        "wkr": dense_init(gen, d, m.qk_rope_dim, **kw),
+        "wuk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_dim, **kw),
+        "wuv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, **kw),
+        "wo": dense_init(gen, h * m.v_head_dim, d, **kw),
+    }
+
+
+def mla_make_cache(cfg: ArchConfig, batch: int, length: int, dtype, device,
+                   layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The latent cache: ``ckv`` (B, T, kv_lora_rank) and the shared rope
+    key ``kr`` (B, T, qk_rope_dim), both k and v of every head."""
+    m = cfg.mla
+    lead = (layers,) if layers is not None else ()
+    return {"ckv": torch.zeros(lead + (batch, length, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros(lead + (batch, length, m.qk_rope_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
+              backend: Backend = TORCH, chunk: int = 1024
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x (B,T,d).  Prefill writes the cache from slot 0; decode (T == 1)
+    writes slot ``pos`` in place and attends over the whole cache.
+
+    Absorbed form, as in the reference: ``W_uk`` folds into q and the
+    query attends directly against the latent ``[ckv, kr]`` with one KV
+    head (``ckv`` is also the value), then ``W_uv`` maps each head's
+    output up; no per-head K or V is ever built.  ``wdq``, ``wuq``,
+    ``wdkv``, ``wkr`` and ``wo`` are ``dense()`` products; ``wuk`` and
+    ``wuv`` are einsums, as in the reference."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+
+    q = dense(p["wuq"], apply_norm(p["qnorm"], dense(p["wdq"], x, backend),
+                                   cfg.norm_eps), backend)
+    q = q.reshape(b, t, h, nd + rd)
+    qn, qr = q[..., :nd], q[..., nd:]
+    qr = rope(qr, positions, cfg.rope_theta)
+    ckv = apply_norm(p["kvnorm"], dense(p["wdkv"], x, backend), cfg.norm_eps)
+    kr = rope(dense(p["wkr"], x, backend)[:, :, None, :], positions,
+              cfg.rope_theta)[:, :, 0]                        # shared head
+
+    pos = positions[:, 0] if positions.dim() > 1 else positions  # (B,)
+    if cache is not None and t == 1:
+        bi = torch.arange(b, device=x.device)
+        cache["ckv"][bi, pos] = ckv[:, 0].to(cache["ckv"].dtype)
+        cache["kr"][bi, pos] = kr[:, 0].to(cache["kr"].dtype)
+        ckv_all, kr_all = cache["ckv"], cache["kr"]
+    else:
+        ckv_all, kr_all = ckv, kr
+        if cache is not None:  # prefill fills the cache
+            cache["ckv"][:, :t] = ckv.to(cache["ckv"].dtype)
+            cache["kr"][:, :t] = kr.to(cache["kr"].dtype)
+
+    wuk = p["wuk"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, nd)
+    q_lat = torch.einsum("bthn,rhn->bthr", qn, wuk)           # (B,T,H,r)
+    qq = torch.cat([q_lat, qr], -1)                           # (B,T,H,r+rd)
+    kk = torch.cat([ckv_all, kr_all], -1)[:, :, None, :]      # (B,Tk,1,r+rd)
+    scale_fix = ((nd + rd) ** -0.5) / ((m.kv_lora_rank + rd) ** -0.5)
+    out = chunked_attention(qq * scale_fix, kk, ckv_all[:, :, None, :],
+                            causal=True, chunk=chunk, q_offset=pos)
+    wuv = p["wuv"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, vd)
+    out = torch.einsum("bthr,rhv->bthv", out, wuv)
+    y = dense(p["wo"], out.reshape(b, t, h * vd), backend)
     return y, cache

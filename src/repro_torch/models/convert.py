@@ -1,9 +1,12 @@
 """Parameters of the JAX reference, as numpy arrays, into the port.
 
 The port keeps the reference's parameter tree and layouts (layer-stacked
-leaves with a leading L axis under ``stack/dense_stack``,
-``stack/ssm_stack`` or the hybrid's ``stack/groups``, ``stack/shared``
-and ``stack/tail``, dense weights ``(d_in, d_out)``), so the conversion
+leaves with a leading L axis under ``stack/dense_stack`` and
+``stack/moe_stack`` (MLA's ``attn/{wdq,wuq,wdkv,wkr,wuk,wuv,wo}``, the
+MoE's ``moe/{router,experts,shared}``), ``stack/ssm_stack`` or the
+hybrid's ``stack/groups``, ``stack/shared`` and ``stack/tail``, the MTP
+head's ``mtp_proj`` and ``mtp_norm``, dense weights ``(d_in, d_out)``,
+expert banks ``(E, d_in, d_out)``), so the conversion
 map is the identity on paths: every leaf is copied, after its path and
 shape are checked against the port's own ``init`` on the meta device,
 and takes that leaf's dtype (the SSM's f32 ``a_log``, ``d_skip`` and

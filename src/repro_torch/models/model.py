@@ -1,11 +1,13 @@
 """The public model facade: init / make_caches / prefill / decode_step.
 
-Port of ``repro.models.model`` for the dense, SSM and hybrid text
-families.  The parameter tree has the reference's structure and layout
-(``stack/dense_stack``, ``stack/ssm_stack`` or the hybrid's
-``stack/{groups,shared,lora_a,lora_b,tail}`` with a leading L axis,
-``final_norm``, ``embed``, ``head`` when untied), so ``models.convert``
-maps reference parameters over one to one.
+Port of ``repro.models.model`` for the text decoder families: dense,
+MoE (with MLA and the MTP head's parameters), SSM and hybrid.  The
+parameter tree has the reference's structure and layout
+(``stack/dense_stack`` and ``stack/moe_stack``, ``stack/ssm_stack`` or
+the hybrid's ``stack/{groups,shared,lora_a,lora_b,tail}`` with a leading
+L axis, ``final_norm``, ``embed``, ``head`` when untied, ``mtp_proj`` and
+``mtp_norm`` when ``cfg.mtp``), so ``models.convert`` maps reference
+parameters over one to one.
 
 Entry points run on ``cuda`` unless the caller passes another device
 (the CPU tests pass ``device="cpu"``); asking for the card where there is
@@ -36,11 +38,11 @@ def _family_fns(cfg: ArchConfig):
 
 
 def _check(cfg: ArchConfig) -> None:
-    tf.check_family(cfg)
     if cfg.modality != "text" or cfg.encoder_only:
         raise NotImplementedError(
-            f"{cfg.modality!r} models are not ported yet (ROADMAP.md, "
-            f"queue 1, item 7)")
+            f"{cfg.modality!r} models ({cfg.family} family) are not ported "
+            f"yet (ROADMAP.md, queue 1, item 7: the encoder and VLM "
+            f"families)")
 
 
 def init(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -59,6 +61,10 @@ def init(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         p["head"] = dense_init(generator, cfg.d_model, cfg.vocab_padded,
                                dtype, device)
+    if cfg.mtp:     # the training loss's multi-token-prediction head
+        p["mtp_proj"] = dense_init(generator, cfg.d_model, cfg.d_model,
+                                   dtype, device)
+        p["mtp_norm"] = norm_init(cfg.d_model, dtype, device, cfg.norm)
     return p
 
 
@@ -122,9 +128,9 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
     h = embed(params["embed"], tokens, cfg.compute_dtype_())
     positions = torch.arange(t, device=dev).expand(b, t)
     caches = make_caches(cfg, b, cache_len, dev)
-    h, caches = _family_fns(cfg)[2](params["stack"], h, cfg,
-                                    positions=positions, caches=caches,
-                                    backend=backend, causal=True)
+    h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                       positions=positions, caches=caches,
+                                       backend=backend, causal=True)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, h[:, -1], cfg), caches
 
@@ -136,9 +142,9 @@ def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
     _check(cfg)
     backend = as_backend(backend)
     h = embed(params["embed"], tokens, cfg.compute_dtype_())   # (B,1,d)
-    h, caches = _family_fns(cfg)[2](params["stack"], h, cfg,
-                                    positions=positions[:, None],
-                                    caches=caches, backend=backend,
-                                    causal=True)
+    h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                       positions=positions[:, None],
+                                       caches=caches, backend=backend,
+                                       causal=True)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, h[:, 0], cfg), caches

@@ -1,12 +1,15 @@
-"""Blocks and stacks: the dense decoder transformer, the SSM stack and the
-Zamba2 hybrid.
+"""Blocks and stacks: the decoder transformer (dense, MoE, MLA), the SSM
+stack and the Zamba2 hybrid.
 
-Port of ``repro.models.transformer`` for the dense, SSM and hybrid
-families.  Parameters and caches keep the reference's layer-stacked
-layout (a leading L axis under ``dense_stack`` / ``ssm_stack`` /
+Port of ``repro.models.transformer`` for the text decoder families.
+Parameters and caches keep the reference's layer-stacked layout (a
+leading L axis under ``dense_stack`` / ``moe_stack`` / ``ssm_stack`` /
 ``groups``); a Python loop over layers replaces ``lax.scan``, and each
 layer sees views of the stacked tensors, so cache and state writes land
-in place.  MoE and MLA stacks wait for their slices.
+in place.  Every stack returns ``(h, caches, aux)`` as the reference's
+does: ``aux`` sums the MoE layers' load-balance losses, a 0-d f32
+tensor, and is the float 0.0 for a stack without MoE layers (no kernel
+launch spent on a zero).
 """
 from __future__ import annotations
 
@@ -16,21 +19,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense_init, mlp, mlp_init, norm_init, normal,
 )
-
-_PENDING = ("the {what} stack is not ported yet (ROADMAP.md, queue 1, "
-            "item 7: the other model families)")
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise for the families this slice does not run."""
-    what = ("moe" if cfg.moe is not None else "mla" if cfg.mla is not None
-            else None)
-    if what is not None:
-        raise NotImplementedError(_PENDING.format(what=what))
 
 
 def layer(tree, i: int):
@@ -41,58 +34,101 @@ def layer(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# attention + mlp block
+# attention + (mlp | moe) block
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen, cfg: ArchConfig, dtype, device, layers: int = 0):
-    return {"ln1": norm_init(cfg.d_model, dtype, device, cfg.norm, layers),
-            "ln2": norm_init(cfg.d_model, dtype, device, cfg.norm, layers),
-            "attn": attn_mod.attn_init(gen, cfg, dtype, device, layers),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                            device, layers)}
+def block_init(gen, cfg: ArchConfig, dtype, device, layers: int = 0,
+               use_moe: bool = False):
+    p = {"ln1": norm_init(cfg.d_model, dtype, device, cfg.norm, layers),
+         "ln2": norm_init(cfg.d_model, dtype, device, cfg.norm, layers)}
+    if cfg.mla is not None:
+        p["attn"] = attn_mod.mla_init(gen, cfg, dtype, device, layers)
+    else:
+        p["attn"] = attn_mod.attn_init(gen, cfg, dtype, device, layers)
+    if use_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, layers)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device, layers)
+    return p
 
 
 def block_apply(p, h, cfg: ArchConfig, *, positions, cache=None,
                 backend: Backend = TORCH, causal=True):
+    """Returns ``(h, cache, aux)``; ``aux`` is the MoE load-balance loss
+    (0.0 for an MLP block)."""
     x = apply_norm(p["ln1"], h, cfg.norm_eps)
-    a, new_cache = attn_mod.attention_apply(
-        p["attn"], x, cfg, positions=positions, cache=cache,
-        backend=backend, causal=causal)
+    if cfg.mla is not None:
+        a, new_cache = attn_mod.mla_apply(p["attn"], x, cfg,
+                                          positions=positions, cache=cache,
+                                          backend=backend)
+    else:
+        a, new_cache = attn_mod.attention_apply(
+            p["attn"], x, cfg, positions=positions, cache=cache,
+            backend=backend, causal=causal)
     h = h + a
     x = apply_norm(p["ln2"], h, cfg.norm_eps)
-    h = h + mlp(p["mlp"], x, cfg.act, backend)
-    return h, new_cache
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(p["moe"], x, cfg, backend)
+    else:
+        y, aux = mlp(p["mlp"], x, cfg.act, backend), 0.0
+    return h + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
-# dense decoder stack
+# uniform stack (dense / moe with leading dense layers)
 # ---------------------------------------------------------------------------
+
+
+def _stack_sizes(cfg: ArchConfig):
+    """``(dense_stack, moe_stack)`` layer counts: the first
+    ``first_dense_layers`` layers of an MoE model are dense."""
+    fd = min(cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers,
+             cfg.n_layers)
+    return fd, cfg.n_layers - fd
 
 
 def decoder_init(gen, cfg: ArchConfig, dtype, device) -> Dict:
-    check_family(cfg)
-    return {"dense_stack": block_init(gen, cfg, dtype, device,
-                                      layers=cfg.n_layers)}
+    fd, nm = _stack_sizes(cfg)
+    p = {}
+    if fd:
+        p["dense_stack"] = block_init(gen, cfg, dtype, device, layers=fd)
+    if nm:
+        p["moe_stack"] = block_init(gen, cfg, dtype, device, layers=nm,
+                                    use_moe=True)
+    return p
 
 
 def decoder_make_caches(cfg: ArchConfig, batch: int, length: int, dtype,
                         device) -> Dict:
-    check_family(cfg)
-    return {"dense_stack": attn_mod.make_cache(cfg, batch, length, dtype,
-                                               device, layers=cfg.n_layers)}
+    """One KV cache per layer (an MLA model's latent ``{ckv, kr}``), in
+    the stacks of :func:`decoder_init`."""
+    mk = attn_mod.mla_make_cache if cfg.mla is not None \
+        else attn_mod.make_cache
+    return {name: mk(cfg, batch, length, dtype, device, layers=n)
+            for name, n in zip(("dense_stack", "moe_stack"),
+                               _stack_sizes(cfg)) if n}
 
 
 def decoder_apply(p, h, cfg: ArchConfig, *, positions,
                   caches: Optional[Dict] = None, backend: Backend = TORCH,
                   causal=True):
-    """Returns ``(h, caches)``; ``caches`` is updated in place."""
-    stack = p["dense_stack"]
-    for i in range(cfg.n_layers):
-        c = layer(caches["dense_stack"], i) if caches is not None else None
-        h, _ = block_apply(layer(stack, i), h, cfg, positions=positions,
-                           cache=c, backend=backend, causal=causal)
-    return h, caches
+    """Returns ``(h, caches, aux)``; ``caches`` is updated in place and
+    ``aux`` sums every MoE layer's load-balance loss."""
+    aux = 0.0
+    for name in ("dense_stack", "moe_stack"):
+        if name not in p:
+            continue
+        stack = p[name]
+        n = stack["ln1"]["scale"].shape[0]
+        for i in range(n):
+            c = layer(caches[name], i) if caches is not None else None
+            h, _, a = block_apply(layer(stack, i), h, cfg,
+                                  positions=positions, cache=c,
+                                  backend=backend, causal=causal)
+            aux = aux + a
+    return h, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -117,12 +153,12 @@ def ssm_make_states(cfg: ArchConfig, batch: int, length: int, dtype,
 def ssm_stack_apply(p, h, cfg: ArchConfig, *, positions=None,
                     caches: Optional[Dict] = None, backend: Backend = TORCH,
                     causal=True):
-    """Returns ``(h, caches)``; the states in ``caches`` are overwritten
-    in place with each layer's new state."""
+    """Returns ``(h, caches, 0.0)``; the states in ``caches`` are
+    overwritten in place with each layer's new state."""
     states = caches["ssm_stack"] if caches is not None else None
     for i in range(cfg.n_layers):
         h = _mamba_layer(p["ssm_stack"], states, i, h, cfg, backend)
-    return h, caches
+    return h, caches, 0.0
 
 
 def _mamba_stack_init(gen, cfg: ArchConfig, dtype, device, n: int) -> Dict:
@@ -205,8 +241,8 @@ def hybrid_apply(p, h, cfg: ArchConfig, *, positions,
     shared block ``g % n_shared_blocks`` once on ``[h, e0] @ (w + A_g B_g)``
     (e0 the original embeddings; a plain product, as in the reference,
     whose merged projection is not ``dense()``), with the residual on the
-    block's delta.  The tail runs last.  Returns ``(h, caches)``; caches
-    are updated in place."""
+    block's delta.  The tail runs last.  Returns ``(h, caches, 0.0)``;
+    caches are updated in place."""
     hy = cfg.hybrid
     every = hy.shared_every
     e0 = h
@@ -218,11 +254,11 @@ def hybrid_apply(p, h, cfg: ArchConfig, *, positions,
         xin = cat @ lora_merged_in_proj(p, g, cfg, cat.dtype)
         block = layer(p["shared"]["block"], g % hy.n_shared_blocks)
         kv = layer(caches["shared_kv"], g) if caches is not None else None
-        y, _ = block_apply(block, xin, cfg, positions=positions, cache=kv,
-                           backend=backend, causal=True)
+        y, _, _ = block_apply(block, xin, cfg, positions=positions,
+                              cache=kv, backend=backend, causal=True)
         h = h + (y - xin)                  # residual on the block's delta
     if "tail" in p:
         states = caches["tail"] if caches is not None else None
         for i in range(cfg.n_layers % every):
             h = _mamba_layer(p["tail"], states, i, h, cfg, backend)
-    return h, caches
+    return h, caches, 0.0

@@ -146,7 +146,9 @@ class PIMCluster:
     DeviceTensor` and the scheduler's ledger walks run unchanged.  The
     stack axis is explicit where it matters: :meth:`device` addresses by
     ``(stack, channel)``, :meth:`stack_of` recovers a flat id's stack,
-    and :attr:`link` is the shared host-link ledger.
+    and :attr:`link` is the shared host-link ledger.  ``device=`` (the
+    card by default) is where the engines compute, kept as
+    ``torch_device``, so :meth:`device` stays the reference's accessor.
     """
 
     def __init__(self, stacks: int = 1, channels: int = PSEUDO_CHANNELS,
@@ -158,10 +160,10 @@ class PIMCluster:
         assert stacks >= 1, "a cluster has at least one stack"
         self.channels_per_stack = channels
         self.link_topology = link_topology
-        self.device = resolve_device(device)
+        self.torch_device = resolve_device(device)
         self.stacks = [PIMStack(channels, stack_id=s,
                                 capacity_bytes=capacity_bytes,
-                                device=self.device)
+                                device=self.torch_device)
                        for s in range(stacks)]
         self.link = HostLinkLedger()
         # "switched": one private link per stack behind a host-side
@@ -251,4 +253,5 @@ class PIMCluster:
     def reset(self) -> None:
         cap = self.stacks[0].capacity_bytes
         self.__init__(self.n_stacks, self.channels_per_stack, cap,
-                      link_topology=self.link_topology, device=self.device)
+                      link_topology=self.link_topology,
+                      device=self.torch_device)

@@ -336,7 +336,7 @@ class PIMStack:
     ``__getitem__`` stays local (0-based within the stack).  A bare stack
     (``stack_id=0``) numbers devices 0..channels-1 exactly as before.
     ``device`` is where the channels' engines compute (the card by
-    default).
+    default), kept as ``torch_device``.
     """
 
     def __init__(self, channels: int = PSEUDO_CHANNELS, stack_id: int = 0,
@@ -345,9 +345,9 @@ class PIMStack:
             f"a stack has at most {PSEUDO_CHANNELS} pseudo-channels"
         self.stack_id = stack_id
         self.capacity_bytes = capacity_bytes
-        self.device = resolve_device(device)
+        self.torch_device = resolve_device(device)
         self.devices = [PIMDevice(stack_id * channels + i, capacity_bytes,
-                                  self.device)
+                                  self.torch_device)
                         for i in range(channels)]
 
     def __len__(self) -> int:
@@ -385,4 +385,4 @@ class PIMStack:
 
     def reset(self) -> None:
         self.__init__(len(self.devices), self.stack_id, self.capacity_bytes,
-                      self.device)
+                      self.torch_device)

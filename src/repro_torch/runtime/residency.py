@@ -102,7 +102,7 @@ class DeviceTensor:
         if values is None:
             self.values = None
         else:
-            self.values = as_f16(values, stack.device)
+            self.values = as_f16(values, stack.torch_device)
             if copy and self.values is values:
                 self.values = self.values.clone()
         self.pending_d2h: List[Tuple[int, Box]] = []   # (channel, box)
@@ -229,7 +229,7 @@ class PagedTensor(DeviceTensor):
                     else (self.fixed, cap))
             if self._buf is None or self._buf.shape[self.grow_axis] < cap:
                 buf = torch.zeros(full, dtype=torch.float16,
-                                  device=self.stack.device)
+                                  device=self.stack.torch_device)
                 if self._buf is not None:
                     if self.grow_axis == 0:
                         buf[:lo] = self._buf[:lo]
@@ -237,7 +237,7 @@ class PagedTensor(DeviceTensor):
                         buf[:, :lo] = self._buf[:, :lo]
                 self._buf = buf
             if values is not None:
-                new = as_f16(values, self.stack.device)
+                new = as_f16(values, self.stack.torch_device)
                 if self.grow_axis == 0:
                     self._buf[lo:self.tokens] = new
                 else:

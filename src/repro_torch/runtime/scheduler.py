@@ -378,7 +378,7 @@ class PIMRuntime:
         else:
             self.stack = PIMStack(channels, capacity_bytes=capacity_bytes,
                                   device=device)
-        self.device = self.stack.device
+        self.device = self.stack.torch_device
         self.engine = engine
         self.overlap = overlap
         self._cluster = self.stack if isinstance(self.stack, PIMCluster) \

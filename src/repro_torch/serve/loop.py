@@ -38,25 +38,37 @@ decode roofline of the :class:`~repro_torch.serve.traffic.HostCostModel`
 without a sidecar) — so :meth:`Server.latency_summary` is deterministic;
 ``wall=True`` stamps wall-clock time instead, and an explicit ``clock=``
 shares one clock across servers.
+
+:class:`TrafficServer` is the load-study twin: it drives a
+:class:`~repro_torch.serve.offload.DecodeOffload` under a stochastic
+arrival :class:`~repro_torch.serve.traffic.Trace` entirely in virtual
+time, with prefill/decode disaggregation (prefill priced on the host
+roofline, decode PIM-resident, the prefilled KV handed off across the
+shared :class:`~repro_torch.runtime.cluster.HostLinkLedger`), chunked
+prefill, admission control, slot autoscaling and SLO goodput accounting.
+It runs no model and nothing on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.isa import PIM_FREQ_HZ
 from repro_torch.faults.plan import as_plan
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 from repro_torch.models.layers import as_backend
 from repro_torch.obs.metrics import Histogram
+from repro_torch.runtime.cluster import HostLinkLedger
 from repro_torch.serve.offload import DecodeOffload
-from repro_torch.serve.traffic import HostCostModel, SimClock, WallClock
+from repro_torch.serve.traffic import (SLO, HostCostModel, SimClock, Trace,
+                                       TraceRequest, WallClock)
 
 
 class AdmissionError(RuntimeError):
@@ -398,6 +410,425 @@ class Server:
         }
 
 
+# ---------------------------------------------------------------------------
+# Traffic-driven virtual-time serving: prefill/decode disaggregation
+# ---------------------------------------------------------------------------
+
+
+class _BusyLane:
+    """One contended resource as a set of reserved busy intervals.
+
+    A scalar "free after the last reservation" clock is wrong for the
+    host link: prefill KV handoffs are reserved *into the future* (each
+    chunk ships only after its compute lands), and a decode step's small
+    activation window arriving *now* may use the idle gap in front of
+    them instead of queueing behind the whole prefill pipeline.
+    ``reserve`` places a duration at the earliest gap at or after
+    ``ready`` — first-fit, which is link arbitration with no preemption.
+    """
+
+    def __init__(self):
+        self._busy: List[Tuple[float, float]] = []   # sorted, disjoint
+
+    def prune(self, now: float) -> None:
+        """Drop intervals that ended before ``now`` — reservations are
+        never placed in the past, so they can no longer collide."""
+        self._busy = [iv for iv in self._busy if iv[1] > now]
+
+    def reserve(self, ready: float, dur: float) -> Tuple[float, float]:
+        """Occupy the lane for ``dur`` seconds starting at the earliest
+        instant >= ``ready`` with no overlap; returns ``(start, end)``."""
+        if dur <= 0:
+            return ready, ready
+        t = ready
+        at = 0
+        for i, (s, e) in enumerate(self._busy):
+            if s - t >= dur:        # fits in the gap before interval i
+                at = i
+                break
+            t = max(t, e)
+            at = i + 1
+        self._busy.insert(at, (t, t + dur))
+        return t, t + dur
+
+
+class TrafficServer:
+    """Virtual-time load simulator: a decode-resident PIM server under a
+    stochastic arrival :class:`~repro_torch.serve.traffic.Trace` (port of
+    ``repro.serve.loop.TrafficServer``).
+
+    Where :class:`Server` runs the model, ``TrafficServer`` *clocks*
+    serving at full scale: every duration comes from the analytic cost
+    substrate (the offload's per-step PIM makespan, the
+    :class:`~repro_torch.serve.traffic.HostCostModel` prefill roofline,
+    and the host-link cycles of
+    :class:`~repro_torch.runtime.cluster.HostLinkLedger`), so thousands
+    of requests simulate in seconds and every latency percentile is
+    deterministic and machine-independent.
+
+    Three resources contend, each in virtual seconds:
+
+    * the **host device** (prefill chunks — compute the prompt's KV and
+      first token), priced by ``cost`` (the H100 descriptor by default;
+      pass the reference's constants to reproduce its numbers);
+    * the **shared host link** (prefilled KV handed off to PIM pages as
+      ``"prefill"`` windows, per-decode-step activations as ``"acts"``
+      windows — charged on the offload cluster's own ledger when it has
+      one, so they land in its trace);
+    * the **PIM decode pipeline** (batched decode steps, priced by the
+      offload's :class:`~repro_torch.serve.offload.StepRecord`).
+
+    ``disaggregate=True`` (default) lets the host prefill ahead while PIM
+    decodes — the two phases contend only on the link.
+    ``disaggregate=False`` is the **colocated** baseline: prefill chunks
+    serialize on the decode lane (one chunk per prefilling request per
+    serving iteration), stalling decode as a single-pipeline server does.
+    ``chunk_tokens`` bounds that stall in both modes.
+
+    Admission control (``max_queue``), slot autoscaling (``autoscale=``
+    one of the :mod:`repro_torch.serve.traffic` policies) and an
+    :class:`~repro_torch.serve.traffic.SLO` for goodput/attainment
+    complete the load study.  With ``kv_offload`` sidecars the KV
+    lifecycle (``kv_prefill`` at handoff, ``kv_release`` at retire) runs
+    for real; analytic decode step costs are probed once per distinct
+    batch size (``cache_steps``; exact stepping is forced when the step
+    cost is stateful, i.e. the KV cache grows).
+
+    Strictly additive: running an empty trace leaves the offload's
+    ledgers ``==`` and its trace byte-identical.
+    """
+
+    def __init__(self, offload: DecodeOffload, *, slots: int = 4,
+                 disaggregate: bool = True, chunk_tokens: int = 256,
+                 max_queue: Optional[int] = None, autoscale=None,
+                 slo: Optional[SLO] = None, metrics=None, clock=None,
+                 cost: Optional[HostCostModel] = None,
+                 cache_steps: Optional[bool] = None,
+                 step_costs: Optional[Dict[int, Tuple[float, int]]] = None):
+        if offload.async_mode:
+            raise ValueError(
+                "TrafficServer clocks its own virtual lanes; drive it "
+                "with a serialized (async_mode=False) offload")
+        self.off = offload
+        self.cfg = offload.cfg
+        self.cost = cost if cost is not None else HostCostModel(offload.cfg)
+        self.slots = slots
+        self.disaggregate = disaggregate
+        self.chunk_tokens = max(1, chunk_tokens)
+        self.max_queue = max_queue
+        self.autoscale = autoscale
+        self.slo = slo
+        self.metrics = metrics
+        self.clock = clock if clock is not None else SimClock()
+        # analytic StepRecords are pure functions of the batch size, so
+        # one probe step per distinct batch prices every iteration; a
+        # growing KV cache makes the cost stateful -> step exactly
+        self.cache_steps = (offload.kv is None) if cache_steps is None \
+            else cache_steps
+        self._step_costs: Dict[int, Tuple[float, int]] = \
+            step_costs if step_costs is not None else {}
+        # the shared host link: the offload cluster's ledger when it has
+        # one (multi-stack — handoff windows then land in its trace),
+        # else an own ledger with identical accounting
+        stack = offload.rt.stack
+        self.link: HostLinkLedger = getattr(stack, "link", None) \
+            or HostLinkLedger()
+        # host and PIM are monotonic "free at" times (their work is
+        # always scheduled at the current sim time); the link takes
+        # future reservations, so it books busy intervals
+        self._host_free_s = 0.0         # host prefill lane
+        self._pim_free_s = 0.0          # PIM decode lane
+        self._link_lane = _BusyLane()
+        if self.link.tl_free > 0:       # respect prior async occupancy
+            self._link_lane.reserve(0.0, self.link.tl_free / PIM_FREQ_HZ)
+        self.queue: List[Request] = []
+        self.active: List[Request] = []         # decode-resident
+        self.prefilling: List[Request] = []     # colocated chunk progress
+        self._tokens_left: Dict[int, int] = {}  # colocated prefill tokens
+        self._ready_s: Dict[int, float] = {}    # uid -> KV handoff done
+        self._last_tok_s: Dict[int, float] = {}
+        self.completed: List[Request] = []
+        self.shed_requests: List[TraceRequest] = []
+        self.shed = 0
+        self.iterations = 0
+        self.slots_max_seen = slots
+        self.max_decode_gap_s = 0.0     # worst inter-token decode stall
+        self._recent_ttft: List[float] = []
+
+    # -- resource lanes -------------------------------------------------------
+
+    def _link_window(self, kind: str, nbytes: int,
+                     ready_s: float) -> Tuple[float, float]:
+        """Charge ``nbytes`` on the shared host link as one ``kind``
+        event and occupy the link lane for its clocked duration starting
+        no earlier than ``ready_s``; returns ``(start, end)`` seconds."""
+        if nbytes <= 0:
+            return ready_s, ready_s
+        cyc = self.link.charge(kind, nbytes)
+        self._link_lane.prune(self.clock.now)
+        start, end = self._link_lane.reserve(ready_s, cyc / PIM_FREQ_HZ)
+        self.link.tl_free = max(self.link.tl_free, end * PIM_FREQ_HZ)
+        return start, end
+
+    def _step_cost(self, batch: int,
+                   rids: List[int]) -> Tuple[float, int]:
+        """One decode iteration's ``(pim_s, h2d_bytes)`` over ``batch``
+        slots — probed once per distinct batch when cacheable."""
+        if not self.cache_steps:
+            rec = self.off.step(batch, request_ids=rids)
+            return rec.pim_s, rec.h2d_bytes
+        if batch not in self._step_costs:
+            rec = self.off.step(batch)
+            self._step_costs[batch] = (rec.pim_s, rec.h2d_bytes)
+        return self._step_costs[batch]
+
+    @property
+    def routing_observed(self):
+        """The offload's observed per-layer expert-selection histogram
+        (a :class:`~repro_torch.serve.traffic.RoutingProfile`), or
+        ``None`` when the offload is not routed (``routing=None``)."""
+        return self.off.observed
+
+    # -- request lifecycle ----------------------------------------------------
+
+    def _arrive(self, tr: TraceRequest) -> None:
+        if self.max_queue is not None:
+            cap = max(1, int(self.max_queue * self.off.surviving_fraction))
+            if len(self.queue) >= cap:
+                self.shed += 1
+                self.shed_requests.append(tr)
+                if self.metrics is not None:
+                    self.metrics.counter(
+                        "serve.shed", unit="requests",
+                        help="arrivals shed by admission control").inc()
+                return
+        req = Request(uid=tr.uid,
+                      prompt=np.zeros((tr.prompt_len,), np.int32),
+                      max_new=tr.max_new, submitted_at=tr.at_s)
+        self.queue.append(req)
+
+    def _admit(self, req: Request) -> None:
+        now = self.clock.now
+        req.admitted_at = now
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "serve.queue_delay_s", unit="s",
+                help="queue wait (arrival -> prefill start)").record(
+                now - req.submitted_at)
+        if not self.disaggregate:
+            # colocated: chunks serialize on the decode lane, one per
+            # serving iteration (see _prefill_chunk_colocated)
+            self._tokens_left[req.uid] = len(req.prompt)
+            self.prefilling.append(req)
+            return
+        # disaggregated: the whole chunked prefill schedules on the host
+        # lane now; each chunk's KV hands off over the link as soon as
+        # its compute lands.  TTFT closes at the last chunk's compute
+        # (the prefill argmax); decode may start once the last handoff
+        # clears the link.
+        tokens, t, ready = len(req.prompt), now, now
+        while tokens > 0:
+            ct = min(self.chunk_tokens, tokens)
+            tokens -= ct
+            cs = max(t, self._host_free_s)
+            ce = cs + self.cost.prefill_s(ct)
+            self._host_free_s = t = ce
+            _, ready = self._link_window(
+                "prefill", self.cost.kv_ship_bytes(ct), ce)
+        req.first_token_at = t
+        self._finish_prefill(req, ready)
+
+    def _prefill_chunk_colocated(self, req: Request) -> None:
+        """Advance one colocated request's prefill by one chunk *on the
+        decode lane* — the serialization that makes colocated serving
+        stall, and what ``chunk_tokens`` bounds."""
+        ct = min(self.chunk_tokens, self._tokens_left[req.uid])
+        cs = max(self.clock.now, self._pim_free_s)
+        ce = cs + self.cost.prefill_s(ct)
+        self._pim_free_s = ce
+        _, ready = self._link_window(
+            "prefill", self.cost.kv_ship_bytes(ct), ce)
+        self.clock.advance_to(ce)
+        self._tokens_left[req.uid] -= ct
+        if self._tokens_left[req.uid] <= 0:
+            del self._tokens_left[req.uid]
+            self.prefilling.remove(req)
+            req.first_token_at = ce
+            self._finish_prefill(req, ready)
+
+    def _finish_prefill(self, req: Request, ready_s: float) -> None:
+        req.out_tokens.append(0)        # the prefill argmax (token 1)
+        ttft = req.first_token_at - req.submitted_at
+        self._recent_ttft.append(ttft)
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "serve.ttft_s", unit="s",
+                help="time to first token (arrival -> prefill argmax)"
+            ).record(ttft)
+        self._ready_s[req.uid] = ready_s
+        self._last_tok_s[req.uid] = req.first_token_at
+        self.active.append(req)
+        if self.off.kv is not None:
+            self.off.kv_prefill(req.uid, len(req.prompt))
+
+    def _decode_step(self) -> bool:
+        """One batched decode iteration over every handoff-complete
+        active request; returns False when none is eligible yet."""
+        now = self.clock.now
+        eligible = [r for r in self.active if self._ready_s[r.uid] <= now]
+        if not eligible:
+            return False
+        pim_s, h2d = self._step_cost(len(eligible),
+                                     [r.uid for r in eligible])
+        # the step's activations cross the link, then PIM computes
+        _, le = self._link_window("acts", h2d, now)
+        ds = max(le, self._pim_free_s)
+        de = ds + pim_s
+        self._pim_free_s = de
+        self.clock.advance_to(de)
+        for req in eligible:
+            self.max_decode_gap_s = max(
+                self.max_decode_gap_s, de - self._last_tok_s[req.uid])
+            self._last_tok_s[req.uid] = de
+            req.out_tokens.append(0)
+            if len(req.out_tokens) >= req.max_new:
+                self._retire(req, de)
+        return True
+
+    def _retire(self, req: Request, at_s: float) -> None:
+        req.done = True
+        req.finished_at = at_s
+        self.active.remove(req)
+        del self._ready_s[req.uid], self._last_tok_s[req.uid]
+        self.completed.append(req)
+        if self.off.kv is not None:
+            self.off.kv_release(req.uid)
+        if self.metrics is not None:
+            m = self.metrics
+            m.counter("serve.requests", unit="requests",
+                      help="requests completed").inc()
+            m.counter("serve.tokens", unit="tokens",
+                      help="tokens generated (first token included)").inc(
+                len(req.out_tokens))
+            if len(req.out_tokens) >= 2:
+                m.histogram(
+                    "serve.tpot_s", unit="s",
+                    help="time per output token after the first").record(
+                    (req.finished_at - req.first_token_at)
+                    / (len(req.out_tokens) - 1))
+
+    # -- the serving loop -----------------------------------------------------
+
+    def run(self, trace: Trace, max_iters: int = 2_000_000
+            ) -> List[Request]:
+        """Replay ``trace`` to completion; returns the completed
+        requests (``latency_summary`` aggregates them)."""
+        pending = list(trace)
+        pi, n = 0, len(pending)
+        while pi < n or self.queue or self.active or self.prefilling:
+            self.iterations += 1
+            if self.iterations > max_iters:
+                raise RuntimeError(
+                    f"traffic simulation exceeded max_iters={max_iters} "
+                    f"({len(self.completed)} completed, "
+                    f"{len(self.queue)} queued)")
+            now = self.clock.now
+            while pi < n and pending[pi].at_s <= now:
+                self._arrive(pending[pi])
+                pi += 1
+            if self.autoscale is not None:
+                live = len(self.active) + len(self.prefilling)
+                self.slots = max(1, self.autoscale.target(
+                    queue_len=len(self.queue), slots=self.slots,
+                    live=live, recent_ttft=self._recent_ttft))
+                self.slots_max_seen = max(self.slots_max_seen, self.slots)
+            if self.metrics is not None:
+                self.metrics.gauge(
+                    "serve.queue_depth", unit="requests",
+                    help="queued requests at iteration start").set(
+                    len(self.queue))
+                self.metrics.gauge(
+                    "serve.slots", unit="slots",
+                    help="decode slot capacity (autoscaled)").set(
+                    self.slots)
+            while self.queue and \
+                    len(self.active) + len(self.prefilling) < self.slots:
+                self._admit(self.queue.pop(0))
+            for req in list(self.prefilling):
+                self._prefill_chunk_colocated(req)
+            stepped = self._decode_step() if self.active else False
+            if stepped or self.prefilling or self.clock.now > now:
+                continue
+            # idle: jump to the next event (an arrival, or a pending KV
+            # handoff completing)
+            horizon = []
+            if self.active:
+                horizon.append(min(self._ready_s[r.uid]
+                                   for r in self.active))
+            if pi < n:
+                horizon.append(pending[pi].at_s)
+            if not horizon:
+                raise RuntimeError(
+                    "traffic simulation stalled with work pending — "
+                    "this is a scheduler bug")
+            self.clock.advance_to(min(horizon))
+        return self.completed
+
+    # -- reporting ------------------------------------------------------------
+
+    def latency_summary(self) -> Dict:
+        """Load-study summary: latency percentiles (virtual seconds),
+        throughput and, with an :class:`~repro_torch.serve.traffic.SLO`
+        attached, attainment and goodput; the reference's keys.
+
+        Attainment counts shed arrivals as SLO misses (shedding is a
+        service failure from the client's side); goodput is SLO-met
+        completions per second of simulated serving time.
+        """
+        ttft = Histogram("serve.ttft_s", unit="s")
+        tpot = Histogram("serve.tpot_s", unit="s")
+        qdel = Histogram("serve.queue_delay_s", unit="s")
+        met = 0
+        for req in self.completed:
+            t = req.first_token_at - req.submitted_at
+            ttft.record(t)
+            qdel.record(req.admitted_at - req.submitted_at)
+            p = None
+            if len(req.out_tokens) >= 2:
+                p = (req.finished_at - req.first_token_at) \
+                    / (len(req.out_tokens) - 1)
+                tpot.record(p)
+            if self.slo is not None and self.slo.met(t, p):
+                met += 1
+        span = max((r.finished_at for r in self.completed),
+                   default=self.clock.now) or 1e-12
+        offered = len(self.completed) + self.shed
+        out = {
+            "requests": len(self.completed),
+            "shed": self.shed,
+            "tokens": sum(len(r.out_tokens) for r in self.completed),
+            "duration_s": span,
+            "throughput_rps": len(self.completed) / span,
+            "ttft_s": _pct_summary(ttft),
+            "tpot_s": _pct_summary(tpot),
+            "queue_delay_s": _pct_summary(qdel),
+            "max_decode_gap_s": self.max_decode_gap_s,
+            "iterations": self.iterations,
+            "slots_max": self.slots_max_seen,
+            "link_prefill_bytes": sum(
+                b for k, b in self.link.events if k == "prefill"),
+            "link_acts_bytes": sum(
+                b for k, b in self.link.events if k == "acts"),
+        }
+        if self.slo is not None:
+            out["slo"] = {"ttft_s": self.slo.ttft_s,
+                          "tpot_s": self.slo.tpot_s}
+            out["slo_met"] = met
+            out["slo_attainment"] = met / offered if offered else 0.0
+            out["goodput_rps"] = met / span
+        return out
+
+
 def _pct_summary(h: Histogram) -> Dict:
     """``Histogram.summary()`` plus the serving tail (p99.9)."""
     s = h.summary()
@@ -408,10 +839,19 @@ def _pct_summary(h: Histogram) -> Dict:
 def _splice(full, one, slot: int) -> None:
     """Copy the single-sequence prefill cache ``one`` into batch slot
     ``slot`` of the server cache ``full``, in place.  Cache leaves put
-    batch at axis 1 (layer-stacked), the hybrid's mixed {groups,
-    shared_kv, tail} cache included."""
+    batch at axis 1 (layer-stacked) for every family: the hybrid's mixed
+    {groups, shared_kv, tail} cache and MLA's latent {ckv, kr} included.
+    A leaf of ``one`` longer than ``full``'s along another axis is cut
+    to it, a shorter one zero-filled to it, as the reference trims and
+    pads."""
     for k, v in full.items():
         if isinstance(v, dict):
             _splice(v, one[k], slot)
-        else:
-            v[:, slot].copy_(one[k][:, 0])
+            continue
+        src, dst = one[k][:, 0], v[:, slot]
+        if src.shape != dst.shape:
+            overlap = tuple(slice(0, min(a, b))
+                            for a, b in zip(dst.shape, src.shape))
+            dst.zero_()
+            dst, src = dst[overlap], src[overlap]
+        dst.copy_(src)

@@ -792,9 +792,7 @@ class DecodeOffload:
                     moved += 1
                     if cluster is not None:
                         cluster.link_for(h).charge("reupload", ebytes)
-                        # (the reference's cluster.device(h, 0); the
-                        # port's PIMCluster.device is its torch device)
-                        dev = cluster.stacks[h].devices[0]
+                        dev = cluster.device(h, 0)
                     else:
                         dev = self.rt.stack.devices[0]
                     dev.events.append(

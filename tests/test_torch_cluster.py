@@ -139,3 +139,20 @@ def test_stack_restricted_op_requires_a_cluster():
                 np.zeros((128, 128)), np.zeros((128, 128)), stack=5)
         with pytest.raises(ValueError, match="link_topology"):
             R.PIMCluster(2, 2, link_topology="ring", **kw)
+
+
+@pytest.mark.parametrize("stacks,cps", [(2, 2), (3, 4)])
+def test_cluster_device_addresses_stack_and_channel(stacks, cps):
+    """``PIMCluster.device(stack, channel)`` is the reference's accessor:
+    the device at those coordinates, with the reference's flat channel
+    id; the torch device the engines compute on is ``torch_device``."""
+    ref = JR.PIMCluster(stacks, cps)
+    port = TR.PIMCluster(stacks, cps, device="cpu")
+    assert port.torch_device.type == "cpu"
+    for s in range(stacks):
+        for c in range(cps):
+            dev = port.device(s, c)
+            assert dev is port.stacks[s].devices[c]
+            assert dev is port[port.flat(s, c)]
+            assert dev.channel_id == ref.device(s, c).channel_id
+            assert dev.engine.device == port.torch_device

@@ -21,7 +21,7 @@ import repro.runtime as JR
 import repro_torch.faults as TF
 import repro_torch.obs as TO
 import repro_torch.runtime as TR
-from test_torch_runtime import assert_records_equal, norm, rand
+from test_torch_runtime import assert_records_equal, fresh_uids, norm, rand
 
 #: (runtime package, faults package, obs package, runtime keywords)
 PACKAGES = {"reference": (JR, JF, JO, {}),
@@ -29,7 +29,13 @@ PACKAGES = {"reference": (JR, JF, JO, {}),
 
 
 def run_both(scenario, *args):
-    return tuple(scenario(*pkg, *args) for pkg in PACKAGES.values())
+    """``scenario`` on each package, each run from uid 1 (fault instants
+    and lost sets name tensor uids)."""
+    out = []
+    for pkg in PACKAGES.values():
+        fresh_uids()
+        out.append(scenario(*pkg, *args))
+    return tuple(out)
 
 
 def check(scenario, *args):

@@ -751,3 +751,87 @@ def test_numeric_offload_on_the_card_matches_the_cpu(cuda, async_mode):
     for key in ("xfer", "trace", "chrome", "faults", "kv"):
         assert cpu[key] == card[key], key
     assert card["faults"]["channel_failures"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA families on the card
+# ---------------------------------------------------------------------------
+
+#: (k, n) of the K1 calls of a mixtral-8x22b layer (q, k/v, o) and of a
+#: deepseek-v3-671b layer (MLA's wdq, wuq, wdkv, wkr, wo; the dense MLP's
+#: up/gate and down; the shared expert's up/gate and down)
+MOE_KN = [(6144, 6144), (6144, 1024),
+          (7168, 1536), (1536, 24576), (7168, 512), (7168, 64),
+          (16384, 7168), (7168, 18432), (18432, 7168), (7168, 2048),
+          (2048, 7168)]
+
+
+@pytest.mark.parametrize("k,n", MOE_KN)
+@pytest.mark.parametrize("m", [4, 64])
+def test_mma_kernel_at_moe_shapes(cuda, m, k, n):
+    """The MoE models' projections, as served in bf16, take the
+    tensor-core variant and match the plain version."""
+    a, b = _pair(m, k, n, torch.bfloat16, cuda, seed=k + n)
+    assert k1.variant(a, b) == "mma"
+    before = dict(k1.launches_by_variant)
+    got = k1.ame_gemm(a, b)
+    torch.cuda.synchronize()
+    assert k1.launches_by_variant["mma"] == before["mma"] + 1
+    torch.testing.assert_close(got.float(), ref.gemm(a, b).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_reduced_moe_models_kernel_vs_torch_on_the_card(cuda, name):
+    """Reduced mixtral-8x22b and deepseek-v3-671b (f32) on the card: the
+    kernel backend's prefill and four decode steps against the torch
+    backend's on the same card and against the CPU's plain run, each K1
+    call counted (32 and 32 a forward at their full-width depths; 16 and
+    32 at reduced depth)."""
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    cfg = get(name).reduced()
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for label, params, dev, be in (("cpu", cpu, "cpu", "torch"),
+                                   ("torch", to(cpu, cuda), cuda, "torch"),
+                                   ("kernel", to(cpu, cuda), cuda,
+                                    "kernel")):
+        before = k1.launches
+        lg, c = lm.prefill(params, {"tokens": toks.to(dev)}, cfg, 20,
+                           backend=be)
+        seq = [lg.cpu()]
+        pos = torch.full((2,), 12, device=dev)
+        for _ in range(4):
+            lg, c = lm.decode_step(params, seq[-1].argmax(-1).to(dev)[:, None],
+                                   pos, c, cfg, backend=be)
+            seq.append(lg.cpu())
+            pos = pos + 1
+        runs[label] = (torch.stack(seq), k1.launches - before)
+    per_forward = {"mixtral-8x22b": 4 * cfg.n_layers,
+                   "deepseek-v3-671b": 8 * cfg.n_layers}[name]
+    assert runs["kernel"][1] == 5 * per_forward
+    assert runs["torch"][1] == runs["cpu"][1] == 0
+    for label in ("torch", "cpu"):
+        torch.testing.assert_close(runs["kernel"][0], runs[label][0],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_cluster_device_accessor_on_a_card_cluster(cuda):
+    """``PIMCluster.device(stack, channel)`` on a cluster whose engines
+    compute on the card is the device at those coordinates."""
+    from repro_torch.runtime import PIMCluster
+    cluster = PIMCluster(2, 4, device=cuda)
+    assert cluster.torch_device.type == "cuda"
+    for s in range(2):
+        for c in range(4):
+            dev = cluster.device(s, c)
+            assert dev is cluster.stacks[s].devices[c]
+            assert dev.channel_id == s * 4 + c
+            assert dev.engine.device.type == "cuda"

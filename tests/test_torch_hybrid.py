@@ -132,9 +132,9 @@ def test_lora_merge_and_tail_take_part(models):
     h = torch.randn(1, 5, cfg.d_model, generator=torch.Generator()
                     .manual_seed(0))
     pos = torch.arange(5)[None]
-    full, _ = tf.hybrid_apply(params["stack"], h, cfg, positions=pos)
+    full, _, _ = tf.hybrid_apply(params["stack"], h, cfg, positions=pos)
     cut = {k: v for k, v in params["stack"].items() if k != "tail"}
-    short, _ = tf.hybrid_apply(cut, h, cfg, positions=pos)
+    short, _, _ = tf.hybrid_apply(cut, h, cfg, positions=pos)
     assert float((full - short).abs().max()) > 1e-3
 
 

@@ -27,7 +27,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.obs.critical_path", "repro_torch.obs.__main__",
             "repro_torch.faults.plan", "repro_torch.faults.injector",
             "repro_torch.serve.offload", "repro_torch.sharding.rules",
-            "repro_torch.configs.mixtral_8x22b"} <= set(mods)
+            "repro_torch.configs.mixtral_8x22b", "repro_torch.models.moe",
+            "repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.serve.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -40,7 +40,7 @@ from repro.launch import hw as jhw
 from repro_torch.configs import get
 from repro_torch.obs import MetricsRegistry, export_chrome_trace, \
     profile_report
-from test_torch_runtime import BENCH, norm
+from test_torch_runtime import BENCH, fresh_uids, norm
 
 ROOT = Path(__file__).resolve().parents[1]
 DUMP = ROOT / "results" / "dryrun" / "qwen3-1.7b.decode.pim_offload.json"
@@ -91,7 +91,13 @@ def assert_offloads_equal(ref, port):
 
 
 def run_both(scenario, *args):
-    return tuple(scenario(*pkg, *args) for pkg in PACKAGES.values())
+    """``scenario`` on each package, each run from uid 1 (the stack
+    failover's fault instants name tensor uids)."""
+    out = []
+    for pkg in PACKAGES.values():
+        fresh_uids()
+        out.append(scenario(*pkg, *args))
+    return tuple(out)
 
 
 def check(scenario, *args):

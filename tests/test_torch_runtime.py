@@ -16,6 +16,7 @@ test_async.py; test_torch_cluster.py and test_torch_kvcache.py reuse its
 harness.
 """
 import dataclasses
+import itertools
 import json
 from pathlib import Path
 
@@ -24,7 +25,9 @@ import pytest
 import torch
 
 import repro.runtime as JR
+import repro.runtime.residency as JResidency
 import repro_torch.runtime as TR
+import repro_torch.runtime.residency as TResidency
 
 #: (package, keyword arguments that put a runtime on the CPU)
 PACKAGES = {"reference": (JR, {}), "port": (TR, {"device": "cpu"})}
@@ -81,6 +84,16 @@ def norm(x, uids=None):
     if isinstance(x, (list, tuple)):
         return type(x)(norm(v, uids) for v in x)
     return x
+
+
+def fresh_uids():
+    """Start both packages' tensor uids at 1.  The uids count per process,
+    and fault instants and lost sets name them, so a harness that compares
+    those calls this before each package's run: whatever ran earlier in
+    the process (another test file on the same worker) must not shift one
+    package's count."""
+    for residency in (JResidency, TResidency):
+        residency._uid = itertools.count(1)
 
 
 def run_both(scenario, *args):
@@ -410,12 +423,12 @@ def test_cpu_runtime_without_a_card_needs_device_cpu(monkeypatch):
     rt = TR.PIMRuntime(channels=2, stacks=2, device="cpu")
     assert {d.engine.device.type for d in rt.stack} == {"cpu"}
     rt.stack.reset()
-    assert rt.stack.device.type == "cpu"
+    assert rt.stack.torch_device.type == "cpu"
 
 
 def test_an_explicit_stack_brings_its_own_device():
     stack = TR.PIMStack(2, device="cpu")
-    assert TR.PIMRuntime(stack=stack).device == stack.device
+    assert TR.PIMRuntime(stack=stack).device == stack.torch_device
     with pytest.raises(ValueError, match="device="):
         TR.PIMRuntime(stack=stack, device="cpu")
 

@@ -70,6 +70,60 @@ def test_same_requests_give_same_tokens(served):
     assert all(len(t) >= 2 for t in got.values())
 
 
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_families_serve_the_same_tokens_and_times(name):
+    """Reduced mixtral-8x22b and deepseek-v3-671b through both servers:
+    the decode batch runs both slots (an empty one included) through the
+    MoE's capacity-limited routing, and the tokens, the virtual-time
+    summary and the cache splice of the latent MLA cache all agree."""
+    jcfg, cfg = jget(name).reduced(), get(name).reduced()
+    jp = jax.jit(jlm.init, static_argnums=0)(jcfg, jax.random.PRNGKey(0))
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                     device="cpu")
+    jsrv = JServer(jcfg, jp, slots=SLOTS, cache_len=CACHE_LEN)
+    cost = HostCostModel(cfg, peak_flops=jhw.PEAK_FLOPS, hbm_bw=jhw.HBM_BW)
+    srv = Server(cfg, params, slots=SLOTS, cache_len=CACHE_LEN, cost=cost,
+                 backend="kernel", device="cpu")
+    for s, cls in ((jsrv, JRequest), (srv, Request)):
+        for req in _requests(cls, cfg.vocab_size):
+            s.submit(req)
+        s.run_until_drained()
+    assert {r.uid: r.out_tokens for r in srv.completed} == \
+        {r.uid: r.out_tokens for r in jsrv.completed}
+    assert srv.latency_summary() == jsrv.latency_summary()
+    assert srv.decode_steps > 0 and srv.prefills == 5
+
+
+@pytest.mark.parametrize("one_len", [8, 16, 24], ids=["pad", "equal",
+                                                      "trim"])
+def test_splice_takes_the_latent_cache_and_other_lengths(one_len):
+    """``_splice`` writes a one-sequence prefill cache into one slot of
+    the server's, for MLA's latent {ckv, kr} pair too, cutting a longer
+    sequence axis and zero-filling a shorter one as the reference's
+    ``_splice`` does."""
+    from repro.serve.loop import _splice as jsplice
+    from repro_torch.serve.loop import _splice
+    jcfg, cfg = jget("deepseek-v3-671b").reduced(), \
+        get("deepseek-v3-671b").reduced()
+    rng = np.random.default_rng(1)
+    full = lm.make_caches(cfg, 3, 16, device="cpu")
+    one = lm.make_caches(cfg, 1, one_len, device="cpu")
+    for tree in (full, one):
+        for _, leaf in convert.leaves(tree):
+            leaf.copy_(torch.from_numpy(rng.standard_normal(leaf.shape)))
+    want = {path: np.asarray(jsplice(jax.numpy.asarray(leaf.numpy()),
+                                     jax.numpy.asarray(
+                                         dict(convert.leaves(one))[path]
+                                         .numpy()), 1, jcfg))
+            for path, leaf in convert.leaves(full)}
+    _splice(full, one, 1)
+    got = dict(convert.leaves(full))
+    assert set(got) == {"dense_stack/ckv", "dense_stack/kr",
+                        "moe_stack/ckv", "moe_stack/kr"}
+    for path, leaf in got.items():
+        np.testing.assert_array_equal(leaf.numpy(), want[path], err_msg=path)
+
+
 def test_same_virtual_time(served):
     jsrv, srv = served
     assert srv.latency_summary() == jsrv.latency_summary()
@@ -243,3 +297,15 @@ def test_admission_cap_scales_with_surviving_capacity():
     with pytest.raises(AdmissionError, match="cap 2"):   # 4 x 0.5
         srv.submit(Request(uid=2, prompt=np.zeros(4, np.int32)))
     assert srv.shed == 1
+
+
+def test_serve_example_runs_on_the_cpu(capsys):
+    """``python -m repro_torch.serve --device cpu``: serve_lm's reduced
+    qwen3 with the analytic sidecar and the traffic replay."""
+    from repro_torch.serve.__main__ import main
+    main(["--device", "cpu", "--requests", "4", "--slots", "2",
+          "--max-new", "4", "--pim-offload", "--traffic", "50"])
+    out = capsys.readouterr().out
+    assert "served 4 requests / 16 tokens" in out
+    assert "disaggregated:" in out and "colocated    :" in out
+    assert out.rstrip().endswith("serve_lm OK")
