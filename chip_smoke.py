@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
              paths' shapes (qwen3-1.7b, mamba2-370m and zamba2-2.7b
              projections at m = 1, 4, 64 and, for the SSM and hybrid
              models, 300; mixtral-8x22b's attention and deepseek-v3-671b's
-             MLA, dense MLP and shared-expert projections at m = 4 and 64)
+             MLA, dense MLP and shared-expert projections at m = 4 and 64;
+             the train path's qwen3-1.7b and hubert-xlarge layers at m =
+             2048 and internvl2-76b's at m = 1, 4 and 512)
              and the ragged test shapes;
              every main-path shape must take the tensor-core variant, and
              each line names the variant it took; time the kernel and
@@ -117,13 +119,33 @@ Phases (any failure exits non-zero and prints no result line):
              port's TrafficServer with the reference's host constants,
              exactly; then the same frontiers with the H100 descriptor
              (repro_torch/launch/hw.py), a modeled result.  Host only, in
-             a separate process while phases 3-11 run on the card.
-13. report — fail if any device time reads below its bound; one JSON
+             a separate process while phases 3-11 and 13 run on the card.
+13. train  — with the serve models freed: full-width qwen3-1.7b (28
+             layers, batch 4 x 512) and hubert-xlarge (48 layers, masked
+             frames, 2 x 1024), f32 parameters, bf16 compute and remat as
+             their policies say, each train TRAIN_STEPS AdamW steps on
+             ``backend="torch"`` (the reference trains on XLA) on one fixed
+             SyntheticLM batch: losses finite and falling, the step's time,
+             busy and idle shares and peak memory; before step 1 the
+             kernel backend's loss under ``no_grad`` (K1's main path here,
+             counts set to 0 just before and read just after: 196 and 288
+             launches, all mma) within the bf16 rule of the torch
+             backend's, and within TRAIN_F32_TOL in f32 compute.  Then
+             internvl2-76b at full width cut to TRAIN_DEPTH layers (bf16
+             weights): 128 patch embeddings + 384 text tokens prefilled and
+             16 tokens decoded through the kernel backend (56 K1 launches
+             a forward, all mma), the prefill logits and the kernel
+             backend's loss against the torch backend's.  Then ``python -m
+             repro_torch.train`` with its defaults (300 steps, CE down >=
+             0.5 nats, ``train_lm OK``) and the resume check at its size;
+             last, a reduced qwen3 trained on the card and on the CPU.
+14. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
 import json
+import math
 import multiprocessing
 import subprocess
 import sys
@@ -241,6 +263,46 @@ OFFLOAD_ERR_TOL = 1e-5
 REF_PEAK_FLOPS, REF_HBM_BW = 197e12, 819e9
 #: requests of each load point of the serve frontier (serve_sweep's N_REQ)
 TRAFFIC_REQUESTS = 250
+#: the train phase's full-width models: (sequences, tokens) of the one
+#: fixed batch their AdamW steps train on, and the step count
+TRAIN_BATCH = {"qwen3-1.7b": (4, 512), "hubert-xlarge": (2, 1024)}
+TRAIN_STEPS = 5
+#: the VLM at full width cut to this many of internvl2-76b's 80 layers
+#: (8,946,589,696 bf16 parameters, 16.7 GiB: room on one card for the f32
+#: check's per-layer casts); its prompt (128 patch embeddings ahead of 384
+#: text tokens) and greedy decode steps
+TRAIN_DEPTH = {"internvl2-76b": 8}
+VLM_SEQ, VLM_DECODE = 512, 16
+#: K1 rows of the train and VLM paths, timed in the kernels phase beside
+#: the serving shapes: the training batch's B x T, the VLM's prefill, its
+#: one-sequence decode and a 4-row decode
+TRAIN_M = {"qwen3-1.7b": (2048,), "hubert-xlarge": (2048,),
+           "internvl2-76b": (1, SLOTS, VLM_SEQ)}
+#: kernel-backend vs torch-backend losses and VLM prefill logits, fixed
+#: before the first card run of the train phase: in f32 compute within
+#: TRAIN_F32_TOL (only the order of the sums differs); in bf16 within
+#: max(TRAIN_BF16_FLOOR, SERVE's noise factor x the torch path's own
+#: bf16-vs-f32 distance on the same inputs), the serve checks' rule
+TRAIN_F32_TOL = 1e-3
+TRAIN_BF16_FLOOR = 5e-3
+TRAIN_NOISE_FACTOR = 2.0
+#: python -m repro_torch.train's resume check: this many steps straight
+#: against half of them, a new loop, and the other half; final losses
+#: within the reference's bound (tests/test_substrate.py:208-223)
+RESUME_STEPS, RESUME_REL = 20, 1e-4
+#: a reduced qwen3-1.7b (f32) trained on the card and on the CPU from the
+#: same parameters: per-step losses within SMALL_TRAIN_LOSS_REL, and the
+#: parameters after the last step within SMALL_TRAIN_PARAM_ATOL (f32 sums
+#: in another order) at every entry whose CPU gradient stays at least
+#: ADAM_WELL_CONDITIONED x eps from zero in every step.  Adam divides each
+#: gradient entry by its own magnitude plus eps, so where a gradient comes
+#: within a few eps of zero, sum-order noise of ~1e-9 becomes a sizeable
+#: share of lr (1.24e-4 on an H100 at 651 of this model's 656,768
+#: entries); those entries are held to 2 x lr a step, the most the steps
+#: can move them
+SMALL_TRAIN_STEPS, SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_PARAM_ATOL = 3, 1e-5, \
+    1e-5
+ADAM_WELL_CONDITIONED = 100
 
 
 def log(msg: str) -> None:
@@ -408,11 +470,16 @@ def k1_shapes(cfg):
     """(name, m, k, n) of one layer's K1 calls, per M: one token (m = 1),
     a decode step of SLOTS slots, a prompt of 64 tokens, and for the SSM
     and hybrid models the LONG_PROMPT-token prefill.  The MoE models take
-    their serve's own: the decode step and the longest prompt."""
+    their serve's own: the decode step and the longest prompt.  The train
+    and VLM paths add TRAIN_M's rows (qwen3-1.7b's on top of its serve's;
+    hubert-xlarge and internvl2-76b take only theirs)."""
     m_values = (1, SLOTS, 64) + ((LONG_PROMPT,) if cfg.ssm is not None
                                  else ())
     if cfg.moe is not None:
         m_values = (SLOTS, 64)
+    if cfg.name in TRAIN_M:             # the train and VLM paths' rows
+        m_values = TRAIN_M[cfg.name] if cfg.name != "qwen3-1.7b" \
+            else m_values + TRAIN_M[cfg.name]
     return [(nm, m, k, n) for m in m_values for nm, k, n in k1_layer(cfg)]
 
 
@@ -1393,10 +1460,13 @@ def _log_profile(tag, what, step_ms, host_ms, steps, kernels, n_launch):
             f"measured")
         return
     shares = []
-    for name, key in (("ame_gemm", "ame_gemm"), ("ssd_scan", "ssd_scan_"),
-                      ("cumsum", "tensor_kernel_scan"),
-                      ("copies", "direct_copy_kernel")):
-        hits = [(k, v) for k, v in kernels.items() if key in k]
+    for name, keys in (("ame_gemm", ("ame_gemm",)),
+                       ("ssd_scan", ("ssd_scan_",)),
+                       ("cumsum", ("tensor_kernel_scan",)),
+                       ("copies", ("direct_copy_kernel",)),
+                       ("fp32 gemm", ("sgemm", "gemm_f32f32_f32f32"))):
+        hits = [(k, v) for k, v in kernels.items()
+                if any(key in k for key in keys)]
         if hits:
             ms = sum(v for _, v in hits)
             shares.append(f"{name} {ms:.2f} ms ({100 * ms / busy:.1f}% of "
@@ -2035,6 +2105,388 @@ def phase_traffic():
     return lines
 
 
+def _noise_tol(torch_bf16, torch_f32):
+    """The bf16 limit of a kernel-vs-torch comparison: TRAIN_NOISE_FACTOR x
+    the torch path's own bf16-vs-f32 distance, at least TRAIN_BF16_FLOOR."""
+    noise = float((torch_bf16 - torch_f32).abs().max())
+    return max(TRAIN_BF16_FLOOR, TRAIN_NOISE_FACTOR * noise), noise
+
+
+def _count_k1(fn):
+    """``fn()`` with K1's counts set to 0 just before and read just after
+    (the call is synchronised): returns (result, launches, by variant)."""
+    import torch
+    from repro_torch.kernels import ame_gemm as k1
+    torch.cuda.synchronize()
+    k1.launches = 0                                   # the path starts
+    k1.launches_by_variant.update(mma=0, fma=0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, k1.launches, dict(k1.launches_by_variant)   # it ends
+
+
+def phase_train(cfg, dev):
+    """Full-width training on ``backend="torch"``: TRAIN_STEPS AdamW steps
+    on one fixed SyntheticLM batch, the policy's dtypes and remat; before
+    step 1, the kernel backend's loss on the same parameters under
+    ``no_grad`` (K1's main path here: one launch per projection per layer,
+    all mma) against the torch backend's.  Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import batch_to, grad_tree, make_step, \
+        trainable
+
+    b, t = TRAIN_BATCH[cfg.name]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = trainable(lm.init(cfg, gen, device=dev))
+    oc = dataclasses.replace(adamw.from_policy(cfg.policy, total_steps=100),
+                             warmup_steps=0)
+    opt = adamw.init(params, oc)
+    batch = SyntheticLM(cfg, SHAPES["train_4k"], seed=0, batch_override=b,
+                        seq_override=t).batch(0)
+    tb = batch_to(batch, dev)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {lm.param_count(params):,} parameters "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, params "
+        f"{cfg.policy.param_dtype}, compute {cfg.policy.compute_dtype}, "
+        f"remat {cfg.policy.remat}), AdamW moments {oc.moment_dtype}, "
+        f"batch {b} x {t}; ready in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    with torch.no_grad():
+        (lk, _), launches, variants = _count_k1(
+            lambda: lm.loss_fn(params, tb, cfg, backend="kernel"))
+        lt, _ = lm.loss_fn(params, tb, cfg, backend="torch")
+        cfg32 = cfg.with_policy(compute_dtype="float32")
+        lt32, _ = lm.loss_fn(params, tb, cfg32, backend="torch")
+        lk32, _ = lm.loss_fn(params, tb, cfg32, backend="kernel")
+    want = k1_per_forward(cfg)
+    log(f"[train] {cfg.name} kernel-backend loss (no_grad): ame_gemm "
+        f"launches {launches} (expected {want}), by variant {variants}")
+
+    step = make_step(cfg, oc, dev)
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], state["mets"] = step(
+            state["params"], state["opt"], batch)
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:        # the last step under the profiler
+            kernels, n_launch = _profile(one_step)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            one_step()
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append((start.elapsed_time(end),
+                            1e3 * (time.perf_counter() - h0)))
+        losses.append(float(state["mets"]["loss"]))
+        gnorms.append(float(state["mets"]["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = step_ms[1:]
+    ev = sum(e for e, _ in warm) / len(warm)
+    host = sum(h for _, h in warm) / len(warm)
+
+    def loss_and_grads():               # a step without its AdamW update
+        loss, _ = lm.loss_fn(state["params"], tb, cfg)
+        grad_tree(loss, state["params"])
+    fb_ms, _ = _event_ms(loss_and_grads, 1)
+    log(f"[train] {cfg.name} {TRAIN_STEPS} steps: loss "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+        f"{', '.join(f'{x:.4g}' for x in gnorms)}; step 1 "
+        f"{step_ms[0][0]:.1f} ms; loss and backward alone {fb_ms:.1f} ms "
+        f"(AdamW and the batch copy the rest of a step); peak memory "
+        f"{peak:.2f} GiB")
+    _log_profile("train", f"{cfg.name} training step (loss, backward, "
+                 f"AdamW), batch {b} x {t}", ev, host, len(warm), kernels,
+                 n_launch)
+
+    tol, noise = _noise_tol(lt, lt32)
+    err = abs(float(lk) - losses[0])
+    err32 = abs(float(lk32) - float(lt32))
+    log(f"[train] {cfg.name} loss kernel (no_grad) vs step 1 (torch, with "
+        f"grad): {float(lk):.6f} vs {losses[0]:.6f}, |diff| {err:.4g} "
+        f"(limit {tol:.4g}: {TRAIN_NOISE_FACTOR} x the torch bf16-vs-f32 "
+        f"distance {noise:.4g}, at least {TRAIN_BF16_FLOOR}) "
+        f"{'ok' if err <= tol else 'FAIL'}; torch no_grad "
+        f"{float(lt):.6f}; f32 compute kernel vs torch |diff| {err32:.4g} "
+        f"(limit {TRAIN_F32_TOL}) {'ok' if err32 <= TRAIN_F32_TOL else 'FAIL'}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{cfg.name}: a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall in "
+                             f"{TRAIN_STEPS} steps: {losses}")
+    if launches != want or variants["fma"]:
+        raise AssertionError(f"{cfg.name}: the kernel-backend loss did not "
+                             f"launch K1 once per projection on mma")
+    if not (err <= tol and err32 <= TRAIN_F32_TOL):
+        raise AssertionError(f"{cfg.name}: kernel and torch losses disagree")
+    del params, opt, state, step
+    torch.cuda.empty_cache()
+    busy = sum(kernels.values())
+    return {"launches": {"ame_gemm": launches, "ssd_scan": 0},
+            "step_ms": ev, "busy_ms": busy, "step_launches": n_launch,
+            "idle": max(0.0, 1 - busy / ev), "peak_gib": peak,
+            "fb_ms": fb_ms}
+
+
+def phase_vlm(cfg, dev):
+    """internvl2-76b at full width (TRAIN_DEPTH layers, bf16 weights): the
+    prompt's VLM_SEQ positions (patch embeddings ahead of the text) are
+    prefilled and VLM_DECODE tokens decoded greedily through the kernel
+    backend, K1's counts set to 0 just before and read just after; the
+    prefill logits and the kernel backend's loss against the torch
+    backend's.  Returns the launches."""
+    import torch
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.train.loop import batch_to
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    batch = batch_to(SyntheticLM(cfg, SHAPES["train_4k"], seed=0,
+                                 batch_override=1, seq_override=VLM_SEQ)
+                     .batch(0), dev)
+    prompt = {k: batch[k] for k in ("tokens", "vision_embeds")}
+    n_vis, n_txt = batch["vision_embeds"].shape[1], batch["tokens"].shape[1]
+    cache_len = n_vis + n_txt + VLM_DECODE
+    torch.cuda.synchronize()
+    log(f"[vlm] {cfg.name}: {lm.param_count(params):,} parameters "
+        f"({cfg.n_layers} of {get(cfg.name).n_layers} layers at full width, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, params "
+        f"{cfg.policy.param_dtype}, compute {cfg.policy.compute_dtype}) "
+        f"ready in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+    def serve():
+        lg, caches = lm.prefill(params, prompt, cfg, cache_len,
+                                backend="kernel")
+        first, out = lg, []
+        pos = torch.full((1,), n_vis + n_txt, dtype=torch.long, device=dev)
+        for _ in range(VLM_DECODE):
+            nxt = lg.argmax(-1)[:, None]
+            out.append(nxt)
+            lg, caches = lm.decode_step(params, nxt, pos, caches, cfg,
+                                        backend="kernel")
+            pos = pos + 1
+        return first, torch.cat(out, 1), lg
+    torch.cuda.reset_peak_memory_stats()
+    h0 = time.perf_counter()
+    (first, toks, last), launches, variants = _count_k1(serve)
+    wall = time.perf_counter() - h0
+    want = k1_per_forward(cfg) * (1 + VLM_DECODE)
+    log(f"[vlm] prefill of {n_vis} patches + {n_txt} tokens and "
+        f"{VLM_DECODE} decode steps in {wall:.3f}s wall (synchronised), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; ame_gemm launches {launches} (expected {want} = "
+        f"{k1_per_forward(cfg)} x {1 + VLM_DECODE} forwards), by variant "
+        f"{variants}; tokens {toks[0].tolist()}")
+    if launches != want or variants["fma"]:
+        raise AssertionError("the VLM path did not launch K1 once per "
+                             "projection per forward on mma")
+    if not (torch.isfinite(first).all() and torch.isfinite(last).all()
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("VLM logits are not finite or a token is out "
+                             "of the vocab")
+
+    cfg32 = cfg.with_policy(compute_dtype="float32")
+    with torch.no_grad():
+        lg = {}
+        for c, tag in ((cfg, "bf16"), (cfg32, "f32")):
+            for be in ("kernel", "torch"):
+                lg[tag, be] = lm.prefill(params, prompt, c, cache_len,
+                                         backend=be)[0][:, :cfg.vocab_size]
+        (lk, _), loss_launches, loss_variants = _count_k1(
+            lambda: lm.loss_fn(params, batch, cfg, backend="kernel"))
+        lt = lm.loss_fn(params, batch, cfg, backend="torch")[0]
+        lt32 = lm.loss_fn(params, batch, cfg32, backend="torch")[0]
+    same = bool(torch.equal(first[:, :cfg.vocab_size], lg["bf16", "kernel"]))
+    tol, noise = _noise_tol(lg["bf16", "torch"], lg["f32", "torch"])
+    err = float((lg["bf16", "kernel"] - lg["bf16", "torch"]).abs().max())
+    err32 = float((lg["f32", "kernel"] - lg["f32", "torch"]).abs().max())
+    ltol, lnoise = _noise_tol(lt, lt32)
+    lerr = abs(float(lk) - float(lt))
+    log(f"[vlm] prefill logits kernel vs torch: bf16 max_abs_err "
+        f"{err:.4g} (limit {tol:.4g}: {TRAIN_NOISE_FACTOR} x the torch "
+        f"bf16-vs-f32 distance {noise:.4g}) {'ok' if err <= tol else 'FAIL'};"
+        f" f32 compute {err32:.4g} (limit {TRAIN_F32_TOL}) "
+        f"{'ok' if err32 <= TRAIN_F32_TOL else 'FAIL'}; argmax "
+        f"{int(lg['bf16', 'kernel'].argmax())} vs "
+        f"{int(lg['bf16', 'torch'].argmax())}; the served prefill's logits "
+        f"repeat bit for bit: {same}")
+    log(f"[vlm] kernel-backend loss (no_grad, {n_txt} text targets): "
+        f"{float(lk):.6f} vs torch {float(lt):.6f}, |diff| {lerr:.4g} "
+        f"(limit {ltol:.4g}, torch bf16-vs-f32 {lnoise:.4g}) "
+        f"{'ok' if lerr <= ltol else 'FAIL'}; ame_gemm launches "
+        f"{loss_launches} by variant {loss_variants}")
+    if not (err <= tol and err32 <= TRAIN_F32_TOL and lerr <= ltol
+            and math.isfinite(float(lk))):
+        raise AssertionError("VLM kernel and torch backends disagree")
+    if loss_launches != k1_per_forward(cfg) or loss_variants["fma"]:
+        raise AssertionError("the VLM loss did not launch K1 once per "
+                             "projection on mma")
+    del params, lg
+    torch.cuda.empty_cache()
+    return {"launches": {"ame_gemm": launches, "ssd_scan": 0},
+            "loss_launches": {"ame_gemm": loss_launches, "ssd_scan": 0}}
+
+
+def phase_train_cli(dev, out_dir):
+    """``python -m repro_torch.train`` with its defaults (on the card), in
+    this process: it must print ``train_lm OK``.  Then the resume check at
+    its size: RESUME_STEPS steps straight against half, a new loop on
+    fresh parameters, and the other half."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import __main__ as train_main
+    from repro_torch.train.loop import LoopConfig, TrainLoop, make_step, \
+        trainable
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_main.main(["--out", str(out_dir / "train_lm"), "--device",
+                             str(dev)])
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[train_lm] {line}")
+    wall = time.perf_counter() - t0
+    log(f"[train_lm] {wall:.1f}s wall (300 steps, checkpoints included)")
+    if "train_lm OK" not in buf.getvalue().splitlines():
+        raise AssertionError("python -m repro_torch.train did not finish OK")
+
+    cfg = train_main.build_cfg()
+    oc = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=20,
+                           total_steps=RESUME_STEPS, weight_decay=0.01)
+    pipe = SyntheticLM(cfg, SHAPES["train_4k"], seed=0, batch_override=16,
+                       seq_override=128, active_vocab=512)
+
+    def run(name, total, seed=0):
+        params = trainable(lm.init(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+        loop = TrainLoop(LoopConfig(total_steps=total,
+                                    ckpt_every=RESUME_STEPS // 2,
+                                    log_every=1, out_dir=str(out_dir / name)),
+                         make_step(cfg, oc, dev), params,
+                         adamw.init(params, oc), pipe)
+        return loop.run()
+    straight = run("straight", RESUME_STEPS)
+    run("split", RESUME_STEPS // 2)
+    # a new loop on other parameters: the checkpoint overwrites them
+    resumed = run("split", RESUME_STEPS, seed=1)
+    rel = abs(resumed["loss"] - straight["loss"]) / abs(straight["loss"])
+    log(f"[train_lm] resume: {RESUME_STEPS} steps straight loss "
+        f"{straight['loss']:.6f}, {RESUME_STEPS // 2} + "
+        f"{RESUME_STEPS // 2} resumed {resumed['loss']:.6f}, rel diff "
+        f"{rel:.3g} (limit {RESUME_REL}) "
+        f"{'ok' if rel <= RESUME_REL else 'FAIL'}")
+    if not (resumed["step"] == straight["step"] == RESUME_STEPS
+            and rel <= RESUME_REL):
+        raise AssertionError("a resumed run does not match a straight one")
+
+
+def phase_small_train(dev):
+    """A reduced qwen3-1.7b (f32) trained SMALL_TRAIN_STEPS steps on the
+    card and on the CPU from the same parameters and batches."""
+    import torch
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import batch_to, grad_tree, make_step, \
+        trainable
+
+    cfg = get("qwen3-1.7b").reduced()
+    oc = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=100)
+    pipe = SyntheticLM(cfg, SHAPES["train_4k"], seed=1, batch_override=2,
+                       seq_override=32)
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    runs, least = {}, {}
+    for where in ("cpu", dev):
+        params = trainable(adamw.tree_map(lambda p: p.to(where, copy=True),
+                                          cpu))
+        opt, step = adamw.init(params, oc), make_step(cfg, oc, where)
+        losses = []
+        for i in range(SMALL_TRAIN_STEPS):
+            if where == "cpu":       # each entry's least |gradient| so far
+                loss, _ = lm.loss_fn(params, batch_to(pipe.batch(i), "cpu"),
+                                     cfg)
+                for k, g in adamw.tree_leaves(grad_tree(loss, params)):
+                    least[k] = torch.minimum(least.get(k, g.abs()), g.abs())
+            params, opt, mets = step(params, opt, pipe.batch(i))
+            losses.append(float(mets["loss"]))
+        runs[str(where)] = losses, {k: v.detach().cpu() for k, v in
+                                    adamw.tree_leaves(params)}
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    near = {k: least[k] < ADAM_WELL_CONDITIONED * oc.eps for k in pc}
+    diff = {k: (pg[k] - pc[k]).abs() for k in pc}
+    perr = max(float(d[~near[k]].max()) for k, d in diff.items())
+    n_near = sum(int(m.sum()) for m in near.values())
+    near_err = max([float(d[near[k]].max()) for k, d in diff.items()
+                    if near[k].any()] or [0.0])
+    near_limit = 2 * oc.peak_lr * SMALL_TRAIN_STEPS
+    log(f"[small_train] reduced {cfg.name} f32, {SMALL_TRAIN_STEPS} AdamW "
+        f"steps card vs CPU: losses {lg} vs {lc}, max rel {loss_rel:.3g} "
+        f"(limit {SMALL_TRAIN_LOSS_REL}); parameters max_abs_err {perr:.3g} "
+        f"(limit {SMALL_TRAIN_PARAM_ATOL}) over the entries whose gradient "
+        f"stays >= {ADAM_WELL_CONDITIONED} x eps from zero; the other "
+        f"{n_near} of {sum(d.numel() for d in diff.values())} entries "
+        f"{near_err:.3g} (limit {near_limit:.3g}, 2 x lr a step)")
+    if not (loss_rel <= SMALL_TRAIN_LOSS_REL
+            and perr <= SMALL_TRAIN_PARAM_ATOL and near_err <= near_limit):
+        raise AssertionError("training on the card disagrees with the CPU")
+
+
+def train_summary(smi, k1_records, serves):
+    """One line per number the train phase reports, beside the card's
+    name and power limit: each training step's time, busy time, idle
+    share and peak memory; K1's launches on every path; K1's device ms at
+    the train and VLM shapes, summed over a layer, beside torch.matmul's
+    and the bound."""
+    for key, r in serves.items():
+        if key.startswith("train:"):
+            log(f"[summary] {smi} | {key[6:]} training step: "
+                f"{r['step_ms']:.2f} ms by events, busy {r['busy_ms']:.2f} "
+                f"ms in {r['step_launches']} launches, idle "
+                f"{100 * r['idle']:.1f}%, loss and backward alone "
+                f"{r['fb_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB")
+    log(f"[summary] {smi} | ame_gemm launches by path: " + ", ".join(
+        f"{k} {v['launches']['ame_gemm']}" for k, v in serves.items()))
+    for model, ms in TRAIN_M.items():
+        for m in ms:
+            layer = [r for r in k1_records
+                     if r["model"] == model and r["m"] == m]
+            tot = {k: sum(r[k] for r in layer)
+                   for k in ("device_ms", "library_device_ms", "bound_ms")}
+            log(f"[summary] {smi} | ame_gemm {model} layer ({len(layer)} "
+                f"calls) m={m}: device {tot['device_ms']:.4f} ms, "
+                f"torch.matmul {tot['library_device_ms']:.4f} ms "
+                f"({tot['device_ms'] / tot['library_device_ms']:.2f}x), "
+                f"bound {tot['bound_ms']:.4f} ms")
+
+
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -2059,7 +2511,8 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     of the mamba serve, with the variant it took.  K2's: an (8192, 8192)
     bf16 add.  K3's: one qwen3-1.7b layer's causal prefill attention.
     ``launches``: each kernel's count on the paths that run it (the
-    serves, the ops path).  ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
+    serves, the train phase's kernel-backend losses, the VLM's prefill and
+    decode, the ops path).  ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
     issue included); ``device_ms`` and ``library_device_ms`` the same
     calls replayed from a CUDA graph (:func:`device_ms`)."""
     layer = [r for r in k1_records
@@ -2142,13 +2595,13 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
 
 
 def main() -> int:
-    name, _ = phase_device()
+    name, smi = phase_device()
     # the traffic phase is host work only: it runs in its own process
     # while the card phases run, and its lines print after them
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         traffic = pool.submit(phase_traffic)
-        records = phases_on_card(name)
+        records = phases_on_card(name, smi)
         for line in traffic.result():
             log(line)
     import torch
@@ -2159,18 +2612,22 @@ def main() -> int:
     return 0
 
 
-def phases_on_card(name):
-    """Phases 2-11 and the bounds check; returns kernels_line's inputs."""
+def phases_on_card(name, smi):
+    """Phases 2-11 and 13 and the bounds check; returns kernels_line's
+    inputs.  ``smi`` is the card's name and power limit (nvidia-smi)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.configs import get
     qwen, mamba = get("qwen3-1.7b"), get("mamba2-370m")
-    zamba = get("zamba2-2.7b")
+    zamba, hubert = get("zamba2-2.7b"), get("hubert-xlarge")
     mixtral, deepseek = (get(n).replace(n_layers=SERVE_DEPTH[n])
                          for n in ("mixtral-8x22b", "deepseek-v3-671b"))
+    vlm = get("internvl2-76b").replace(
+        n_layers=TRAIN_DEPTH["internvl2-76b"])
     phase_build()
     dev = torch.device("cuda", torch.cuda.current_device())
-    k1_records = phase_kernels([qwen, mamba, zamba, mixtral, deepseek])
+    k1_records = phase_kernels([qwen, mamba, zamba, mixtral, deepseek,
+                                hubert, vlm])
     k4_records = phase_ssd([mamba, zamba])
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
@@ -2189,6 +2646,15 @@ def phases_on_card(name):
     out_dir = ROOT / "build" / "repro_torch" / "offload"
     out_dir.mkdir(parents=True, exist_ok=True)
     phase_offload_values(dev, out_dir)
+    torch.cuda.empty_cache()
+    for cfg in (qwen, hubert):
+        serves[f"train:{cfg.name}"] = phase_train(cfg, dev)
+    v = phase_vlm(vlm, dev)
+    serves[f"vlm:{vlm.name}"] = v
+    serves[f"vlm-loss:{vlm.name}"] = {"launches": v["loss_launches"]}
+    phase_train_cli(dev, ROOT / "build" / "repro_torch" / "train")
+    phase_small_train(dev)
+    train_summary(smi, k1_records, serves)
     check_bounds(k1_records + k4_records + k2_records + k3_records)
     return k1_records, k4_records, k2_records, k3_records, serves, \
         ops_launches

@@ -4,6 +4,13 @@ Port of ``repro/kernels/ops.py``.  ``use_kernel`` takes the place of
 ``use_pallas``.  A CPU tensor always takes the plain version; a CUDA
 tensor with ``use_kernel=True`` launches the kernel, or the call raises.
 There is no fallback from a failed build or launch.
+
+The kernel path is forward-only, as the reference's Pallas path is (a
+``jax.grad`` through it fails): the wrappers fill their outputs through
+``ctypes``, so those outputs carry no autograd history.  With
+``use_kernel=True`` a call raises when gradients are enabled and an
+operand requires one, on the CPU as on the card, so that a gradient is
+never dropped without a word.
 """
 from __future__ import annotations
 
@@ -18,9 +25,21 @@ from repro_torch.kernels.elementwise import ame_elementwise
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``tensors``: the
+    kernel path has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel path is forward-only, as the reference's "
+            f"Pallas path is; train on backend='torch', or call it under "
+            f"torch.no_grad()")
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
          out_dtype: Optional[torch.dtype] = None, **blocks) -> torch.Tensor:
     """C = A @ B via the output-stationary kernel or its plain version."""
+    if use_kernel:
+        forward_only("ops.gemm", a, b)
     if use_kernel and a.is_cuda:
         return ame_gemm(a, b, out_dtype=out_dtype, **blocks)
     return ref.gemm(a, b, out_dtype=out_dtype)
@@ -30,6 +49,8 @@ def elementwise(kind: str, a: torch.Tensor, b: torch.Tensor, *,
                 relu: bool = False, use_kernel: bool = False) -> torch.Tensor:
     """Fused mfadd/mfsub/mfmul (+ ReLU) via the kernel or its plain
     version."""
+    if use_kernel:
+        forward_only("ops.elementwise", a, b)
     if use_kernel and a.is_cuda:
         return ame_elementwise(a, b, kind=kind, relu=relu)
     return ref.elementwise(kind, a, b, relu=relu)
@@ -38,6 +59,8 @@ def elementwise(kind: str, a: torch.Tensor, b: torch.Tensor, *,
 def ssd(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
     """Batched Mamba2 SSD scan, x (BH,T,P) (chunked in both paths — the
     sequential recurrence lives only in ``ref.ssd_scan`` as the oracle)."""
+    if use_kernel:
+        forward_only("ops.ssd", x, log_a, b, c)
     if use_kernel and x.is_cuda:
         return ssd_scan(x, log_a, b, c, chunk=chunk)
     return ref.ssd_chunked(x, log_a, b, c, chunk=chunk)
@@ -48,6 +71,8 @@ def ssd4(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
     reads strided views (unit stride on P and N; b/c may be expanded over
     heads), so the model's (B,T,H,.) layout is passed without a copy and y
     comes back in x's layout."""
+    if use_kernel:
+        forward_only("ops.ssd4", x, log_a, b, c)
     if use_kernel and x.is_cuda:
         return ssd_scan(x, log_a, b, c, chunk=chunk)
     return ref.ssd_chunked4(x, log_a, b, c, chunk=chunk)
@@ -58,6 +83,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention over q (BH,Tq,D), k/v (BH,Tk,D), queries end-aligned, via
     the online-softmax kernel or its plain version; ``blocks`` are the
     kernel's ``block_q``/``block_k``."""
+    if use_kernel:
+        forward_only("ops.attention", q, k, v)
     if use_kernel and q.is_cuda:
         return flash_attention(q, k, v, causal=causal, window=window,
                                **blocks)

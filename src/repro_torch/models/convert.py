@@ -6,7 +6,8 @@ leaves with a leading L axis under ``stack/dense_stack`` and
 MoE's ``moe/{router,experts,shared}``), ``stack/ssm_stack`` or the
 hybrid's ``stack/groups``, ``stack/shared`` and ``stack/tail``, the MTP
 head's ``mtp_proj`` and ``mtp_norm``, dense weights ``(d_in, d_out)``,
-expert banks ``(E, d_in, d_out)``), so the conversion
+expert banks ``(E, d_in, d_out)``; audio's ``mask_emb`` and ``head``, the
+VLM's untied ``head``), so the conversion
 map is the identity on paths: every leaf is copied, after its path and
 shape are checked against the port's own ``init`` on the meta device,
 and takes that leaf's dtype (the SSM's f32 ``a_log``, ``d_skip`` and
@@ -14,7 +15,7 @@ and takes that leaf's dtype (the SSM's f32 ``a_log``, ``d_skip`` and
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -22,16 +23,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
-
-
-def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
-    """``(path, leaf)`` pairs of a nested dict, paths joined by '/'."""
-    for k in sorted(tree):
-        path = f"{prefix}/{k}" if prefix else k
-        if isinstance(tree[k], dict):
-            yield from leaves(tree[k], path)
-        else:
-            yield path, tree[k]
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import tree_leaves as leaves
 
 
 def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -42,15 +35,14 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
 
 
-def params_from_jax(np_tree: Dict, cfg: ArchConfig, device=None) -> Dict:
-    """The reference's parameter pytree (numpy leaves) as the port's
-    parameters on ``device``; raises on any missing, extra or misshapen
-    leaf."""
-    device = resolve_device(device)
-    want = dict(leaves(lm.init(cfg, device="meta")))
+def _from_template(np_tree: Dict, template: Dict, device) -> Dict:
+    """``np_tree``'s leaves as tensors on ``device``, each in the dtype of
+    the ``template`` leaf at its path; raises on any missing, extra or
+    misshapen leaf."""
+    want = dict(leaves(template))
     got = dict(leaves(np_tree))
     if set(want) != set(got):
-        raise ValueError(f"parameter trees differ: missing "
+        raise ValueError(f"trees differ: missing "
                          f"{sorted(set(want) - set(got))}, extra "
                          f"{sorted(set(got) - set(want))}")
     out: Dict = {}
@@ -65,3 +57,21 @@ def params_from_jax(np_tree: Dict, cfg: ArchConfig, device=None) -> Dict:
             node = node.setdefault(k, {})
         node[name] = _tensor(arr, ref.dtype, device)
     return out
+
+
+def params_from_jax(np_tree: Dict, cfg: ArchConfig, device=None) -> Dict:
+    """The reference's parameter pytree (numpy leaves) as the port's
+    parameters on ``device``; raises on any missing, extra or misshapen
+    leaf."""
+    return _from_template(np_tree, lm.init(cfg, device="meta"),
+                          resolve_device(device))
+
+
+def opt_state_from_jax(np_state: Dict, cfg: ArchConfig,
+                       opt: adamw.AdamWConfig, device=None) -> Dict:
+    """The reference's AdamW state (numpy leaves: ``m``, ``v``, ``step``;
+    int8 moments as ``{q, s}``, factored second moments as ``{r, c}``) as
+    the port's, checked leaf by leaf against ``adamw.init`` of ``cfg``'s
+    parameters under ``opt``."""
+    template = adamw.init(lm.init(cfg, device="meta"), opt)
+    return _from_template(np_state, template, resolve_device(device))

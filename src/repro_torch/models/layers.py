@@ -22,7 +22,9 @@ class Backend:
     """Routes dense compute: ``"torch"`` (the plain version; the
     reference's ``"xla"``) or ``"kernel"`` (the hand-written AME GEMM on
     a CUDA tensor, its plain version on a CPU tensor; the reference's
-    ``"pallas"``)."""
+    ``"pallas"``).  ``"kernel"`` is forward-only on both devices, as
+    ``"pallas"`` is: a call that autograd would differentiate raises
+    (``ops.forward_only``)."""
 
     mode: str = "torch"
 

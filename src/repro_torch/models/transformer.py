@@ -10,12 +10,22 @@ in place.  Every stack returns ``(h, caches, aux)`` as the reference's
 does: ``aux`` sums the MoE layers' load-balance losses, a 0-d f32
 tensor, and is the float 0.0 for a stack without MoE layers (no kernel
 launch spent on a zero).
+
+Under ``cfg.policy.remat``, a training forward
+(no caches, gradients enabled) recomputes each block in backward with
+``torch.utils.checkpoint``, where the reference wraps its scan bodies in
+``jax.checkpoint``: per block in the decoder and SSM stacks, per group
+and per tail layer in the hybrid.  The reference's ``remat_policy``
+(``"dots"``, ``"save_collectives"``) chooses what XLA saves; the port
+recomputes the whole block under every policy, so memory differs and
+results do not.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -31,6 +41,27 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> List:
+    """The ``n`` layers of a layer-stacked tree, as views.  One ``unbind``
+    per leaf: in backward the layers' gradients are stacked once, where
+    indexing each layer would scatter each into a zeroed copy of the whole
+    stack."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _remat(fn, cfg: ArchConfig, caches):
+    """``fn`` recomputed in backward under ``cfg.policy.remat`` in a
+    training forward (no caches, gradients enabled)."""
+    if not (cfg.policy.remat and caches is None and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +147,20 @@ def decoder_apply(p, h, cfg: ArchConfig, *, positions,
                   causal=True):
     """Returns ``(h, caches, aux)``; ``caches`` is updated in place and
     ``aux`` sums every MoE layer's load-balance loss."""
+
+    def block(lp, c, h):
+        h, _, a = block_apply(lp, h, cfg, positions=positions, cache=c,
+                              backend=backend, causal=causal)
+        return h, a
+    run = _remat(block, cfg, caches)
     aux = 0.0
     for name in ("dense_stack", "moe_stack"):
         if name not in p:
             continue
-        stack = p[name]
-        n = stack["ln1"]["scale"].shape[0]
-        for i in range(n):
-            c = layer(caches[name], i) if caches is not None else None
-            h, _, a = block_apply(layer(stack, i), h, cfg,
-                                  positions=positions, cache=c,
-                                  backend=backend, causal=causal)
+        n = p[name]["ln1"]["scale"].shape[0]
+        cs = unstack(caches[name] if caches is not None else None, n)
+        for lp, c in zip(unstack(p[name], n), cs):
+            h, a = run(lp, c, h)
             aux = aux + a
     return h, caches, aux
 
@@ -155,9 +189,12 @@ def ssm_stack_apply(p, h, cfg: ArchConfig, *, positions=None,
                     causal=True):
     """Returns ``(h, caches, 0.0)``; the states in ``caches`` are
     overwritten in place with each layer's new state."""
+    run = _remat(lambda lp, st, h: _mamba_layer(lp, st, h, cfg, backend),
+                 cfg, caches)
+    n = cfg.n_layers
     states = caches["ssm_stack"] if caches is not None else None
-    for i in range(cfg.n_layers):
-        h = _mamba_layer(p["ssm_stack"], states, i, h, cfg, backend)
+    for lp, st in zip(unstack(p["ssm_stack"], n), unstack(states, n)):
+        h = run(lp, st, h)
     return h, caches, 0.0
 
 
@@ -166,11 +203,9 @@ def _mamba_stack_init(gen, cfg: ArchConfig, dtype, device, n: int) -> Dict:
             "mamba": ssm_mod.mamba_init(gen, cfg, dtype, device, layers=n)}
 
 
-def _mamba_layer(stack, states, i: int, h, cfg: ArchConfig, backend):
-    """Layer ``i`` of a stacked mamba tree on ``h`` (pre-norm, residual);
-    its state in ``states`` (or none) is overwritten in place."""
-    lp = layer(stack, i)
-    st = layer(states, i) if states is not None else None
+def _mamba_layer(lp, st, h, cfg: ArchConfig, backend):
+    """One mamba layer ``lp`` on ``h`` (pre-norm, residual); its state
+    ``st`` (or none) is overwritten in place."""
     x = apply_norm(lp["ln"], h, cfg.norm_eps)
     y, ns = ssm_mod.mamba_apply(lp["mamba"], x, cfg, state=st,
                                 backend=backend)
@@ -245,20 +280,32 @@ def hybrid_apply(p, h, cfg: ArchConfig, *, positions,
     caches are updated in place."""
     hy = cfg.hybrid
     every = hy.shared_every
-    e0 = h
-    states = caches["groups"] if caches is not None else None
-    for g in range(cfg.n_layers // every):
+    groups, tail = divmod(cfg.n_layers, every)
+    mambas = unstack(p["groups"], groups * every)
+    states = unstack(caches["groups"] if caches is not None else None,
+                     groups * every)
+    blocks = unstack(p["shared"]["block"], hy.n_shared_blocks)
+    kvs = unstack(caches["shared_kv"] if caches is not None else None,
+                  groups)
+
+    def group(g, h, e0):
         for i in range(g * every, (g + 1) * every):
-            h = _mamba_layer(p["groups"], states, i, h, cfg, backend)
+            h = _mamba_layer(mambas[i], states[i], h, cfg, backend)
         cat = torch.cat([h, e0.expand(h.shape)], -1)
         xin = cat @ lora_merged_in_proj(p, g, cfg, cat.dtype)
-        block = layer(p["shared"]["block"], g % hy.n_shared_blocks)
-        kv = layer(caches["shared_kv"], g) if caches is not None else None
-        y, _, _ = block_apply(block, xin, cfg, positions=positions,
-                              cache=kv, backend=backend, causal=True)
-        h = h + (y - xin)                  # residual on the block's delta
+        y, _, _ = block_apply(blocks[g % hy.n_shared_blocks], xin, cfg,
+                              positions=positions, cache=kvs[g],
+                              backend=backend, causal=True)
+        return h + (y - xin)               # residual on the block's delta
+    run = _remat(group, cfg, caches)
+    e0 = h
+    for g in range(groups):
+        h = run(g, h, e0)
     if "tail" in p:
-        states = caches["tail"] if caches is not None else None
-        for i in range(cfg.n_layers % every):
-            h = _mamba_layer(p["tail"], states, i, h, cfg, backend)
+        run = _remat(lambda lp, st, h: _mamba_layer(lp, st, h, cfg, backend),
+                     cfg, caches)
+        for lp, st in zip(unstack(p["tail"], tail),
+                          unstack(caches["tail"] if caches is not None
+                                  else None, tail)):
+            h = run(lp, st, h)
     return h, caches, 0.0

@@ -1,0 +1,1 @@
+"""Optimizers: AdamW and gradient compression (port of ``repro.optim``)."""

@@ -835,3 +835,99 @@ def test_cluster_device_accessor_on_a_card_cluster(cuda):
             assert dev is cluster.stacks[s].devices[c]
             assert dev.channel_id == s * 4 + c
             assert dev.engine.device.type == "cuda"
+
+
+# -- training on the card ------------------------------------------------------
+
+
+def _train_setup(device, name="qwen3-1.7b"):
+    """Reduced ``name`` (f32) with parameters requiring grad on ``device``,
+    seeded on the CPU, and one SyntheticLM batch."""
+    from repro_torch.configs import SHAPES, get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import trainable
+    cfg = get(name).reduced()
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = trainable(adamw.tree_map(lambda p: p.to(device), cpu))
+    batch = SyntheticLM(cfg, SHAPES["train_4k"], seed=1, batch_override=2,
+                        seq_override=32).batch(0)
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "hubert-xlarge",
+                                  "internvl2-76b", "mamba2-370m"])
+def test_loss_and_grads_on_the_card_match_the_cpu(cuda, name):
+    """``loss_fn`` (torch backend, f32, TF32 off) and every gradient on the
+    card against the same on the CPU: only the order of sums differs."""
+    from repro_torch.models import convert
+    from repro_torch.models import model as lm
+    from repro_torch.train.loop import batch_to, grad_tree
+    out = {}
+    for dev in ("cpu", cuda):
+        cfg, params, batch = _train_setup(dev, name)
+        loss, mets = lm.loss_fn(params, batch_to(batch, dev), cfg)
+        out[str(dev)] = loss.detach().cpu(), {
+            k: g.cpu() for k, g in convert.leaves(grad_tree(loss, params))}
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(lg, lc, atol=1e-5, rtol=1e-5)
+    for path, g in gc.items():
+        scale = float(g.abs().max()) + 1e-12
+        assert float((gg[path] - g).abs().max()) <= 1e-4 * scale, path
+
+
+def test_kernel_backend_refuses_a_gradient_on_the_card(cuda):
+    """On CUDA tensors the kernel path would drop the gradient (its outputs
+    are filled through ctypes): it raises, and under ``no_grad`` its loss
+    is the torch backend's within the f32 tolerance."""
+    from repro_torch.models import model as lm
+    from repro_torch.train.loop import batch_to
+    cfg, params, batch = _train_setup(cuda)
+    b = batch_to(batch, cuda)
+    before = k1.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        lm.loss_fn(params, b, cfg, backend="kernel")
+    assert k1.launches == before                 # refused before a launch
+    with torch.no_grad():
+        lk, _ = lm.loss_fn(params, b, cfg, backend="kernel")
+        lt, _ = lm.loss_fn(params, b, cfg, backend="torch")
+    assert k1.launches - before == 7 * cfg.n_layers
+    torch.testing.assert_close(lk, lt, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("moment_dtype,factored", [("float32", False),
+                                                   ("int8", False),
+                                                   ("float32", True)])
+def test_adamw_step_on_the_card_matches_the_cpu(cuda, moment_dtype,
+                                                factored):
+    from repro_torch.models import convert
+    from repro_torch.optim import adamw
+    c = adamw.AdamWConfig(warmup_steps=1, moment_dtype=moment_dtype,
+                          factored_v=factored)
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for dev in ("cpu", cuda):
+        _, params, _ = _train_setup(dev)
+        grads = adamw.tree_map(
+            lambda p: (torch.randn(p.shape, generator=g) * 0.01).to(dev),
+            params)
+        g.manual_seed(3)
+        params, state, m = adamw.apply(params, grads, adamw.init(params, c),
+                                       c)
+        out[str(dev)] = ({k: v.detach().cpu()
+                          for k, v in convert.leaves(params)},
+                         {k: v.cpu() for k, v in convert.leaves(state)}, m)
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out[str(cuda)]
+    assert float(mg["lr"]) == float(mc["lr"])
+    torch.testing.assert_close(mg["grad_norm"].cpu(), mc["grad_norm"],
+                               rtol=1e-6, atol=0)
+    for path in pc:
+        torch.testing.assert_close(pg[path], pc[path], rtol=1e-6, atol=1e-7)
+    for path in sc:
+        if sc[path].dtype == torch.int8:       # a rounding edge may flip
+            assert float((sg[path].float() - sc[path].float()).abs().max()) \
+                <= 1, path
+        else:
+            torch.testing.assert_close(sg[path], sc[path], rtol=1e-5,
+                                       atol=1e-9)

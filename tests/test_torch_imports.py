@@ -29,7 +29,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.serve.offload", "repro_torch.sharding.rules",
             "repro_torch.configs.mixtral_8x22b", "repro_torch.models.moe",
             "repro_torch.configs.deepseek_v3_671b",
-            "repro_torch.serve.__main__"} <= set(mods)
+            "repro_torch.serve.__main__", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.ckpt", "repro_torch.train.loop",
+            "repro_torch.train.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -141,15 +141,17 @@ def test_full_width_shapes_match_reference_without_allocating():
 
 
 def test_unported_families_raise():
-    """The encoder (hubert) and VLM (internvl2) families are refused, by
-    every entry point, naming the roadmap item that ports them; MoE and
-    MLA models build."""
-    for name in ("hubert-xlarge", "internvl2-76b"):
-        cfg = get(name).reduced()
-        for call in (lambda: lm.init(cfg, device="meta"),
-                     lambda: lm.make_caches(cfg, 1, 8, device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                call()
+    """Every family builds now (the encoder and VLM since their port
+    with training); what stays refused is the encoder's decode step,
+    which the reference refuses too.  MoE and MLA models build."""
+    audio = get("hubert-xlarge").reduced()
+    p = lm.init(audio, device="meta")
+    assert {"mask_emb", "head"} <= set(p) and "embed" not in p
+    assert "head" in lm.init(get("internvl2-76b").reduced(), device="meta")
+    caches = lm.make_caches(audio, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="no decode step"):
+        lm.decode_step(p, torch.zeros((1, 1), dtype=torch.long),
+                       torch.zeros((1,), dtype=torch.long), caches, audio)
     cfg = get("qwen3-1.7b").reduced()
     moe = cfg.replace(family="moe", moe=MoEConfig(num_experts=4, top_k=2,
                                                   d_ff_expert=64))
