@@ -139,7 +139,23 @@ Phases (any failure exits non-zero and prints no result line):
              repro_torch.train`` with its defaults (300 steps, CE down >=
              0.5 nats, ``train_lm OK``) and the resume check at its size;
              last, a reduced qwen3 trained on the card and on the CPU.
-14. report — fail if any device time reads below its bound; one JSON
+14. mesh   — the mesh half (repro_torch.launch.steps on DTensor) on a
+             1-rank nccl world and a 1x1 mesh: full-width qwen3-1.7b's
+             sharded prefill (MESH_SERVE, backend="kernel", K1 counts set
+             to 0 just before and read just after: 196 launches, all mma)
+             with logits torch.equal to the unsharded prefill's, and
+             MESH_DECODE sharded decode steps with the unsharded tokens; a
+             warm decode step timed and profiled sharded and unsharded
+             (DTensor's host cost); MESH_TRAIN_STEPS sharded train steps
+             at MESH_MICROBATCHES microbatches, the step-1 loss against
+             make_step's by the train phase's bf16 rule, the loss falling,
+             event / busy ms and peak beside make_step's.  Then, on the
+             host, each in a process of its own: ``python -m
+             repro_torch.launch.distributed_train --device cpu`` (4 gloo
+             ranks, both dataflows), the fake-world dry-run of qwen3-1.7b
+             decode_32k on the 512-rank multi-pod mesh (its traced
+             per-device peak beside memmodel.estimate) and DRYRUN_FAMILIES.
+15. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -303,6 +319,28 @@ RESUME_STEPS, RESUME_REL = 20, 1e-4
 SMALL_TRAIN_STEPS, SMALL_TRAIN_LOSS_REL, SMALL_TRAIN_PARAM_ATOL = 3, 1e-5, \
     1e-5
 ADAM_WELL_CONDITIONED = 100
+#: the mesh phase (repro_torch.launch.steps on a 1-rank nccl world, 1x1
+#: mesh): full-width qwen3-1.7b served through the sharded prefill
+#: (MESH_SERVE sequences x tokens, backend="kernel") and MESH_DECODE
+#: sharded decode steps; trained MESH_TRAIN_STEPS sharded steps at 2
+#: microbatches on TRAIN_BATCH.  The step-1 loss is held to the train
+#: phase's bf16 rule against make_step's on the same parameters and batch:
+#: max(TRAIN_BF16_FLOOR, TRAIN_NOISE_FACTOR x the plain path's own
+#: bf16-vs-f32 loss distance), fixed before the first card run
+MESH_SERVE, MESH_DECODE, MESH_TRAIN_STEPS = (4, 512), 16, 3
+MESH_MICROBATCHES = 2
+#: the host paths of the mesh half, each a process of its own, with its
+#: time limit in seconds: the 4-rank gloo example and the fake-world
+#: dry-runs (the reference's failing multi-pod cell at full depth, then
+#: one cell per family at full width cut in depth: the MoE/MLA model to
+#: its 3 dense layers and 1 MoE layer, the hybrid to one group of 6 mamba
+#: layers and its shared block, the others to 2 layers)
+MESH_HOST_TIMEOUT = 600
+DRYRUN_FAMILIES = [("deepseek-v3-671b", "decode_32k", 4),
+                   ("mamba2-370m", "prefill_32k", 2),
+                   ("zamba2-2.7b", "decode_32k", 6),
+                   ("hubert-xlarge", "train_4k", 2),
+                   ("internvl2-76b", "decode_32k", 2)]
 
 
 def log(msg: str) -> None:
@@ -2459,6 +2497,290 @@ def phase_small_train(dev):
         raise AssertionError("training on the card disagrees with the CPU")
 
 
+def _mesh_host_runs():
+    """Start the mesh half's host paths, each in a process of its own:
+    ``python -m repro_torch.launch.distributed_train --device cpu`` (4
+    gloo ranks), the dry-run of the reference's failing multi-pod cell,
+    and the DRYRUN_FAMILIES cells.  Returns the Popen objects by name."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    fams = ("import json, sys; from repro_torch.launch import dryrun\n"
+            f"for a, s, n in {DRYRUN_FAMILIES!r}:\n"
+            "    r = dryrun.run_cell(a, s, 'single', n_layers=n)\n"
+            "    r.pop('traceback', None)\n"
+            "    print(json.dumps(r), flush=True)\n")
+    cmds = {"distributed_train": ["-m", "repro_torch.launch.distributed_train",
+                                  "--device", "cpu"],
+            "dryrun": ["-m", "repro_torch.launch.dryrun", "--arch",
+                       "qwen3-1.7b", "--shape", "decode_32k", "--mesh",
+                       "multi", "--force"],
+            "dryrun_families": ["-c", fams]}
+    return {k: (subprocess.Popen([sys.executable] + v, cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True),
+                time.perf_counter()) for k, v in cmds.items()}
+
+
+def _mesh_host_results(procs):
+    """Wait for the host paths, print their output and check it."""
+    from repro_torch.launch import memmodel
+    from repro_torch.configs import SHAPES, get
+    out = {}
+    for name, (proc, t0) in procs.items():
+        try:
+            text = proc.communicate(timeout=MESH_HOST_TIMEOUT)[0]
+        finally:
+            proc.kill()
+        out[name] = text
+        for line in text.splitlines():       # the cells' records below
+            if not line.startswith(("[W", "[rank", "{")):
+                log(f"[mesh:{name}] {line[:400]}")
+        log(f"[mesh:{name}] exit {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f}s wall")
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} failed")
+    text = out["distributed_train"]
+    if not ("tp_mode=allreduce" in text and "tp_mode=allgather" in text
+            and "distributed_train OK" in text.splitlines()):
+        raise AssertionError("distributed_train did not finish OK")
+    rec = json.loads((ROOT / "build" / "repro_torch" / "dryrun" /
+                      "qwen3-1.7b.decode_32k.multi.json").read_text())
+    est = memmodel.estimate(get("qwen3-1.7b"), SHAPES["decode_32k"],
+                            {"pod": 2, "data": 16, "model": 16})
+    mem = rec.get("memory", {})
+    log(f"[mesh] dry-run qwen3-1.7b decode_32k multi (512 fake ranks): ok "
+        f"{rec.get('ok')}, {rec.get('step')}, per device: flops "
+        f"{rec.get('flops', 0):.4g} (dot {rec.get('dot_flops', 0):.4g}), "
+        f"traced peak {mem.get('peak_bytes_per_device', 0) / 2 ** 30:.3f} "
+        f"GiB (resident params {mem.get('params_bytes', 0) / 2 ** 30:.3f}, "
+        f"caches {mem.get('caches_bytes', 0) / 2 ** 30:.3f}) beside "
+        f"memmodel.estimate {est['total'] / 2 ** 30:.3f} GiB (params "
+        f"{est['params'] / 2 ** 30:.3f}, caches {est['caches'] / 2 ** 30:.3f}"
+        f"), link bytes {rec.get('collectives', {}).get('total_link_bytes', 0):.4g}"
+        f", trace {rec.get('trace_s')} s")
+    if not (rec.get("ok") and rec.get("flops", 0) > 0):
+        raise AssertionError("the multi-pod dry-run cell failed")
+    fams = [json.loads(line) for line in out["dryrun_families"].splitlines()
+            if line.startswith("{")]
+    for r in fams:
+        mem = r.get("memory", {})
+        log(f"[mesh] dry-run {r['arch']} {r['shape']} single, "
+            f"{r.get('n_layers')} layers: ok {r.get('ok')} {r.get('step')} "
+            f"flops/dev {r.get('flops', 0):.4g}, peak/dev "
+            f"{mem.get('peak_bytes_per_device', 0) / 2 ** 30:.3f} GiB, "
+            f"trace {r.get('trace_s')} s {r.get('error', '')[:300]}")
+    if len(fams) != len(DRYRUN_FAMILIES) or not all(r.get("ok") for r in fams):
+        raise AssertionError("a family's dry-run cell failed")
+
+
+def phase_mesh(cfg, dev):
+    """The mesh half on one card: a 1-rank nccl world and a 1x1 mesh.
+    Full-width qwen3-1.7b's sharded prefill and MESH_DECODE decode steps
+    (backend="kernel", K1 counted) against the unsharded ones on the same
+    parameters; MESH_TRAIN_STEPS sharded train steps (backend="torch",
+    MESH_MICROBATCHES microbatches) against make_step's step 1.  Then the
+    host paths (distributed_train on 4 gloo ranks, the dry-runs).  The
+    warm decode step is timed and profiled sharded and unsharded (the
+    serve's ``lm.decode_step``) at the same shape: DTensor's dispatch
+    costs host time.  Returns the launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train.loop import batch_to, make_step, trainable
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"), device="cuda")
+        b, t = MESH_SERVE
+        cache_len = t + MESH_DECODE
+        pshape = ShapeSpec("mesh_prefill", cache_len, b, "prefill")
+        dshape = ShapeSpec("mesh_decode", cache_len, b, "decode")
+        pf, _, (pspec, bspec, _) = steps.make_prefill_step(
+            cfg, mesh, pshape, backend="kernel")
+        df, _, (_, tspec, posspec, _) = steps.make_decode_step(
+            cfg, mesh, dshape, backend="kernel")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.compute_params(lm.init(cfg, gen, device=dev), cfg)
+        dparams = rules.distribute(params, pspec, mesh)
+        tokens = torch.randint(0, cfg.vocab_size, (b, t), device=dev,
+                               generator=gen)
+        with torch.no_grad():
+            want, caches = lm.prefill(params, {"tokens": tokens}, cfg,
+                                      cache_len=cache_len, backend="kernel")
+        (got, dcaches), launches, variants = _count_k1(lambda: pf(
+            dparams, rules.distribute({"tokens": tokens}, bspec, mesh)))
+        got = full(got)
+        per = k1_per_forward(cfg)
+        equal = torch.equal(got, want)
+        dist_ = float((got - want).abs().max())
+        log(f"[mesh] {cfg.name} sharded prefill (1x1 mesh, nccl, "
+            f"backend=kernel) {b} x {t}: ame_gemm launches {launches} "
+            f"(expected {per}), by variant {variants}; logits torch.equal "
+            f"to the unsharded prefill: {equal} (max |diff| {dist_:.3g})")
+        if launches != per or variants["fma"]:
+            raise AssertionError("the sharded prefill did not launch K1 once "
+                                 "per projection on mma")
+        if not equal:
+            log(f"[mesh] cause: the 1x1 mesh runs the same kernels at the "
+                f"same shapes, so a difference is a reduction in another "
+                f"order; held to the f32 rule {SERVE_F32_LOGITS_TOL}")
+            if not torch.allclose(got, want, atol=SERVE_F32_LOGITS_TOL[0],
+                                  rtol=SERVE_F32_LOGITS_TOL[1]):
+                raise AssertionError("sharded and unsharded prefill logits "
+                                     "disagree")
+        nt, ntd = want.argmax(-1), got.argmax(-1)
+        toks, dtoks, dlaunch, dfma = [nt], [ntd], 0, 0
+        step_wall, ref_wall = [], []
+        for i in range(MESH_DECODE):
+            pos = torch.full((b,), t + i, dtype=torch.long, device=dev)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            with torch.no_grad():
+                want, caches = lm.decode_step(params, nt[:, None], pos,
+                                              caches, cfg, backend="kernel")
+            torch.cuda.synchronize()
+            ref_wall.append(time.perf_counter() - h0)
+            (got, dcaches), n, var = _count_k1(lambda: df(
+                dparams,
+                rules.distribute(ntd[:, None], tspec, mesh),
+                rules.distribute(pos, posspec, mesh), dcaches))
+            step_wall.append(time.perf_counter() - h0 - ref_wall[-1])
+            dlaunch += n
+            dfma += var["fma"]
+            nt, ntd = want.argmax(-1), full(got).argmax(-1)
+            toks.append(nt)
+            dtoks.append(ntd)
+        same = all(torch.equal(a, c) for a, c in zip(toks, dtoks))
+        warm = slice(2, None)
+        sh = 1e3 * sum(step_wall[warm]) / len(step_wall[warm])
+        un = 1e3 * sum(ref_wall[warm]) / len(ref_wall[warm])
+        log(f"[mesh] {cfg.name} {MESH_DECODE} sharded decode steps: tokens "
+            f"equal to the unsharded decode_step's: {same}; ame_gemm "
+            f"launches {dlaunch} ({dlaunch // MESH_DECODE} a step, "
+            f"{dfma} on fma); wall "
+            f"{sh:.2f} ms a step sharded vs {un:.2f} ms unsharded "
+            f"(steps 3-{MESH_DECODE}, host wall, synchronised)")
+        if not same or dlaunch != per * MESH_DECODE:
+            raise AssertionError("the sharded decode steps disagree")
+        if dfma:
+            raise AssertionError("a sharded decode step launched K1 on fma")
+        dfn = lambda: df(dparams, rules.distribute(  # noqa: E731
+            ntd[:, None], tspec, mesh), rules.distribute(
+            pos, posspec, mesh), dcaches)
+        ufn = lambda: lm.decode_step(  # noqa: E731
+            params, nt[:, None], pos, caches, cfg, backend="kernel")
+        with torch.no_grad():
+            for tag, fn in (("sharded", dfn), ("unsharded", ufn)):
+                step_ms, host_ms = _event_ms(fn, 5)
+                kernels, n_launch = _profile(fn)
+                _log_profile("mesh", f"{cfg.name} warm decode step, M={b}, "
+                             f"{tag}", step_ms, host_ms, 5, kernels,
+                             n_launch)
+        serve_launches = launches + dlaunch
+        del params, dparams, caches, dcaches
+        torch.cuda.empty_cache()
+
+        # sharded training against make_step's step 1
+        tcfg = cfg.with_policy(microbatches=MESH_MICROBATCHES)
+        tb, tt = TRAIN_BATCH[cfg.name]
+        oc = dataclasses.replace(adamw.from_policy(cfg.policy,
+                                                   total_steps=100),
+                                 warmup_steps=0)
+        batch = SyntheticLM(cfg, SHAPES["train_4k"], seed=0,
+                            batch_override=tb, seq_override=tt).batch(0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = trainable(lm.init(cfg, gen, device=dev))
+        opt = adamw.init(params, oc)
+        with torch.no_grad():
+            cfg32 = cfg.with_policy(compute_dtype="float32")
+            l16 = lm.loss_fn(params, batch_to(batch, dev), cfg)[0]
+            l32 = lm.loss_fn(params, batch_to(batch, dev), cfg32)[0]
+        tol, noise = _noise_tol(l16, l32)
+        step = make_step(cfg, oc, dev)
+        torch.cuda.reset_peak_memory_stats()
+        state = {}
+
+        def plain():
+            state["p"], state["o"], state["m"] = step(params, opt, batch)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        plain()                          # step 1: its loss is the yardstick
+        plain_loss = float(state["m"]["loss"])
+        start.record()
+        plain()                          # step 2, warm, by events
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernels, n_launch = _profile(plain)
+        plain_busy = sum(kernels.values())
+        del params, opt, state, step
+        torch.cuda.empty_cache()
+
+        fn, _, (pspec, ospec, bspec) = steps.make_train_step(
+            tcfg, mesh, ShapeSpec("mesh_train", tt, tb, "train"),
+            opt_cfg=oc, backend="torch")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.init(cfg, gen, device=dev)
+        dparams = rules.distribute(params, pspec, mesh)
+        dopt = rules.distribute(adamw.init(params, oc), ospec, mesh)
+        dbatch = rules.distribute(batch_to(batch, dev), bspec, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            holder = {}
+
+            def one():
+                holder["r"] = fn(dparams, dopt, dbatch)
+            if i == MESH_TRAIN_STEPS - 1:
+                kernels, n_launch_s = _profile(one)
+            else:
+                start.record()
+                one()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            dparams, dopt, mets = holder["r"]
+            losses.append(float(mets["loss_out"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = sum(kernels.values())
+        err = abs(losses[0] - plain_loss)
+        log(f"[mesh] {cfg.name} sharded train step (1x1 mesh, "
+            f"{MESH_MICROBATCHES} microbatches, backend=torch), batch {tb} x "
+            f"{tt}: losses {', '.join(f'{x:.5f}' for x in losses)}; step 1 "
+            f"vs make_step's {plain_loss:.5f}: |diff| {err:.4g} (limit "
+            f"{tol:.4g}: {TRAIN_NOISE_FACTOR} x the plain path's bf16-vs-f32 "
+            f"distance {noise:.4g}, at least {TRAIN_BF16_FLOOR}) "
+            f"{'ok' if err <= tol else 'FAIL'}")
+        log(f"[mesh] {cfg.name} train step sharded: {times[-1]:.1f} ms by "
+            f"events (step {len(times)}), busy {busy:.1f} ms in {n_launch_s} "
+            f"launches, peak {peak:.2f} GiB; make_step: {plain_ms:.1f} ms "
+            f"(step 2), busy {plain_busy:.1f} ms in {n_launch} launches, "
+            f"peak {plain_peak:.2f} GiB")
+        if not all(map(math.isfinite, losses)) or err > tol \
+                or not losses[-1] < losses[0]:
+            raise AssertionError("the sharded train step failed its checks")
+        del dparams, dopt, dbatch, params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    _mesh_host_results(_mesh_host_runs())
+    return {"launches": {"ame_gemm": serve_launches, "ssd_scan": 0}}
+
+
 def train_summary(smi, k1_records, serves):
     """One line per number the train phase reports, beside the card's
     name and power limit: each training step's time, busy time, idle
@@ -2613,7 +2935,7 @@ def main() -> int:
 
 
 def phases_on_card(name, smi):
-    """Phases 2-11 and 13 and the bounds check; returns kernels_line's
+    """Phases 2-11, 13 and 14 and the bounds check; returns kernels_line's
     inputs.  ``smi`` is the card's name and power limit (nvidia-smi)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2654,6 +2976,7 @@ def phases_on_card(name, smi):
     serves[f"vlm-loss:{vlm.name}"] = {"launches": v["loss_launches"]}
     phase_train_cli(dev, ROOT / "build" / "repro_torch" / "train")
     phase_small_train(dev)
+    serves[f"mesh:{qwen.name}"] = phase_mesh(qwen, dev)
     train_summary(smi, k1_records, serves)
     check_bounds(k1_records + k4_records + k2_records + k3_records)
     return k1_records, k4_records, k2_records, k3_records, serves, \

@@ -16,9 +16,9 @@
   reads back as ``V2``) restores as bf16 too.
 
 ``restore()`` returns host (CPU) tensors shaped like the template; the
-caller copies them where it keeps its state.  The reference's
-``restore_sharded`` places leaves on a mesh and belongs to the mesh half
-of the training port.
+caller copies them where it keeps its state.  ``restore_sharded()``
+places each leaf on a mesh as a DTensor; a DTensor leaf is saved whole
+(gathered), so a checkpoint restores onto any mesh ("elastic").
 """
 from __future__ import annotations
 
@@ -32,6 +32,9 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.sharding.rules import place
 
 #: the ``meta.json`` entry naming the leaves stored as raw bf16 bits
 DTYPES_KEY = "dtypes"
@@ -57,6 +60,8 @@ def _flatten(tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     (stored as their raw bits)."""
     flat, dtypes = {}, {}
     for key, leaf in _leaves(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -165,3 +170,24 @@ class CheckpointManager:
             arrays = dict(npz)
         meta = json.loads((d / "meta.json").read_text())
         return _unflatten(template, arrays, meta.get(DTYPES_KEY, {})), meta
+
+    def restore_sharded(self, template: Any, placements, mesh,
+                        step: Optional[int] = None) -> Tuple[Any, Dict]:
+        """Restore and place with the mesh's placements (elastic):
+        ``placements`` mirrors ``template`` with a list of placements per
+        leaf (``sharding.rules.to_placements``) or ``None`` for a
+        replicated leaf.  Every rank reads the files and copies only its
+        own chunk of each leaf to the mesh's device
+        (``sharding.rules.place``), with no communication."""
+        host, meta = self.restore(template, step)
+        rep = [Replicate()] * mesh.ndim
+
+        def put(x, pl):
+            if isinstance(x, dict):
+                return {k: put(v, pl[k] if pl is not None else None)
+                        for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(put(v, pl[i] if pl is not None else None)
+                               for i, v in enumerate(x))
+            return place(x, rep if pl is None else pl, mesh)
+        return put(host, placements), meta

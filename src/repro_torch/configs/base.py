@@ -52,12 +52,18 @@ class HybridConfig:                 # Zamba2: shared attention block
     lora_rank: int = 64             # per-application LoRA on the shared block
 
 
+#: tp_modes whose block outputs stay feature-sharded on 'model' (no
+#: partial sum crosses it): the paper's dataflow and its PIM flavor
+OUTPUT_SHARDED_TP_MODES = ("allgather", "ame_pim")
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """Numerics + distribution policy (per arch, overridable per run).
 
-    The distribution fields are kept for field-by-field parity with the
-    reference; the port runs on one device and reads only the dtypes."""
+    ``fsdp``, ``microbatches``, ``sp``, ``sp_rs`` and ``tp_mode`` drive the
+    sharded steps (``launch/steps``, ``sharding/rules``); as in the
+    reference, no step reads ``grad_compression``."""
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"

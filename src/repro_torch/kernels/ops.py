@@ -11,12 +11,18 @@ The kernel path is forward-only, as the reference's Pallas path is (a
 ``use_kernel=True`` a call raises when gradients are enabled and an
 operand requires one, on the CPU as on the card, so that a gradient is
 never dropped without a word.
+
+DTensor operands (a sharded step, ``launch/steps``) run the same dispatch
+on each rank's local shards: K1 through ``models.layers.sharded_matmul``,
+K4 through :func:`ssd4`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ame_gemm import ame_gemm
@@ -71,11 +77,32 @@ def ssd4(x, log_a, b, c, *, use_kernel: bool = False, chunk: int = 128):
     reads strided views (unit stride on P and N; b/c may be expanded over
     heads), so the model's (B,T,H,.) layout is passed without a copy and y
     comes back in x's layout."""
+    if isinstance(x, DTensor):
+        return _ssd4_local(x, log_a, b, c, use_kernel, chunk)
     if use_kernel:
         forward_only("ops.ssd4", x, log_a, b, c)
     if use_kernel and x.is_cuda:
         return ssd_scan(x, log_a, b, c, chunk=chunk)
     return ref.ssd_chunked4(x, log_a, b, c, chunk=chunk)
+
+
+def _ssd4_local(x, log_a, b, c, use_kernel: bool, chunk: int):
+    """:func:`ssd4` of DTensors on each rank's local shards: every (batch,
+    head) row scans on its own, so the operands take x's shards of those
+    two dims (T, P and N are gathered) and y keeps them."""
+    mesh = x.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+          for p in x.placements]
+
+    def place(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+    fn = local_map(lambda *a: ssd4(*a, use_kernel=use_kernel, chunk=chunk),
+                   out_placements=pl, in_placements=(pl,) * 4,
+                   device_mesh=mesh)
+    return fn(*(place(t) for t in (x, log_a, b, c)))
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,

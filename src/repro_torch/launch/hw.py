@@ -12,3 +12,4 @@ PEAK_FLOPS_F32 = 67e12       # float32 FMA FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # device-memory bytes/s
 SMEM_PER_BLOCK = 232_448     # shared memory one block may use (227 KB)
 SMS = 132                    # streaming multiprocessors
+HBM_BYTES = 80 * 10 ** 9     # device-memory capacity: the data sheet's 80 GB

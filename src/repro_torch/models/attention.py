@@ -7,20 +7,91 @@ chunks wraps an inner online-softmax loop over KV chunks, so the largest
 live score tensor is (B, q_chunk, H, chunk).
 
 Caches are updated in place (the reference donates them to its jitted
-decode step, which permits the same).
+decode step, which permits the same).  The reference's sharding
+constraints are made at the same places (heads on 'model'; in decode,
+head_dim when the KV heads do not divide the model axis); they are no-ops
+without a mesh.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
-    TORCH, Backend, apply_norm, dense, dense_init, norm_init, rope,
+    TORCH, Backend, apply_norm, dense, dense_init, norm_init, out_constrain,
+    rope,
+)
+from repro_torch.sharding.context import (
+    axis_sizes, constrain, current_mesh, einsum,
 )
 
 NEG = -1e30
+
+
+def splittable(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` ready to have ``dim`` split into (n, rest): a DTensor shard
+    of ``dim`` over a mesh dim whose size does not divide ``n`` (8 KV
+    heads on a 16-way 'model' axis) would split a group, which no
+    placement of the split view describes, so it is gathered first; the
+    reference's ``constrain`` on the split tensor drops the axis the same
+    way.  A plain tensor is returned as it is."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = [Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
+              for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x
+
+
+def split_heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """(B, T, h*hd) -> (B, T, h, hd) (see :func:`splittable`)."""
+    b, t = x.shape[:2]
+    return splittable(x, 2, h).reshape(b, t, h, hd)
+
+
+def put_slots(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor):
+    """``buf[b, slot[b]] = val[b]`` for every sequence b, in place: buf
+    (B, T, ...), slot (B,), val (B, ...).
+
+    On a DTensor each rank writes its own rows (DTensor has no in-place
+    ``index_put_`` on a sharded buffer): ``val`` and ``slot`` take
+    ``buf``'s shards of the sequence dim 0 and of the feature dims.  Where
+    the slot dim T is sharded (the cache rules shard MLA's ``kr`` there),
+    each rank holds a range of slots and writes only the slots in its
+    range, with a select, so no shape depends on the data."""
+    if not isinstance(buf, DTensor):
+        bi = torch.arange(buf.shape[0], device=buf.device)
+        buf[bi, slot] = val.to(buf.dtype)
+        return
+    mesh = buf.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    vp = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+          else p if p.is_shard(0) else Replicate() for p in buf.placements]
+    sp = [p if p.is_shard(0) else Replicate() for p in buf.placements]
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, rep, run_check=False)
+    if not isinstance(slot, DTensor):
+        slot = DTensor.from_local(slot, mesh, rep, run_check=False)
+    bl = buf.to_local()
+    vl = val.redistribute(mesh, vp).to_local().to(bl.dtype)
+    sl = slot.redistribute(mesh, sp).to_local()
+    bi = torch.arange(bl.shape[0], device=bl.device)
+    if any(p.is_shard(1) for p in buf.placements):
+        off, size = 0, buf.shape[1]      # this rank's first slot (even)
+        for i, p in enumerate(buf.placements):
+            if p.is_shard(1):
+                size //= mesh.size(i)
+                off += mesh.get_local_rank(i) * size
+        sl = sl - off
+        mine = (sl >= 0) & (sl < bl.shape[1])
+        sl = torch.clamp(sl, 0, bl.shape[1] - 1)
+        keep = mine.reshape((-1,) + (1,) * (vl.dim() - 1))
+        vl = torch.where(keep, vl, bl[bi, sl])
+    bl[bi, sl] = vl
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -58,7 +129,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     qpos = offs[:, None] + torch.arange(tq, device=dev)[None, :]   # (B, Tq)
     qp = qpos[:, :, None, None, None]
 
-    qg = q.reshape(b, tq, hkv, g, d).float()
+    qg = splittable(q, 2, hkv).reshape(b, tq, hkv, g, d).float()
     m = torch.full((b, tq, hkv, g), NEG, device=dev)
     l = torch.zeros((b, tq, hkv, g), device=dev)
     acc = torch.zeros((b, tq, hkv, g, dv), device=dev)
@@ -66,7 +137,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         kb = k[:, s0:s0 + chunk].float()                    # (B,c,Hkv,D)
         vb = v[:, s0:s0 + chunk].float()
         kpos = kv_positions[:, s0:s0 + chunk][:, None, None, None, :]
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb) * scale
+        s = einsum("bqhgd,bkhd->bqhgk", qg, kb) * scale
         slot = s0 + torch.arange(kb.shape[1], device=dev)
         ok = slot[None, :] < kv_valid[:, None]               # (B, c)
         mask = ok[:, None, None, None, :] & (kpos >= 0)
@@ -79,7 +150,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
+        acc = acc * corr[..., None] + einsum("bqhgk,bkhd->bqhgd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, tq, h, dv).to(q.dtype)
@@ -131,15 +202,18 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     b, t, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     window = cfg.sliding_window
-    q = dense(p["wq"], x, backend).reshape(b, t, h, hd)
-    k = dense(p["wk"], x, backend).reshape(b, t, hkv, hd)
-    v = dense(p["wv"], x, backend).reshape(b, t, hkv, hd)
+    q = split_heads(dense(p["wq"], x, backend), h, hd)
+    k = split_heads(dense(p["wk"], x, backend), hkv, hd)
+    v = split_heads(dense(p["wv"], x, backend), hkv, hd)
     if cfg.qk_norm:
         q = apply_norm(p["qnorm"], q, cfg.norm_eps)
         k = apply_norm(p["knorm"], k, cfg.norm_eps)
     if cfg.pos_embed == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, "model", None)
+    v = constrain(v, "batch", None, "model", None)
 
     if cache is None:
         out = chunked_attention(q, k, v, causal=causal, window=window,
@@ -158,20 +232,32 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                                 chunk=chunk, q_offset=positions[:, 0])
     else:
         # decode: write the new kv into its slot, attend over the cache
+        mesh = current_mesh()
+        msize = axis_sizes(mesh).get("model", 1) if mesh else 1
+        heads_shardable = hkv % max(msize, 1) == 0
         clen = cache["k"].shape[1]
         pos = positions[:, 0] if positions.dim() > 1 else positions  # (B,)
         slot = (pos % clen) if window else pos
-        bi = torch.arange(b, device=x.device)
-        cache["k"][bi, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bi, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][bi, slot] = pos.to(torch.int32)
+        put_slots(cache["k"], slot, k[:, 0])
+        put_slots(cache["v"], slot, v[:, 0])
+        put_slots(cache["pos"], slot, pos.to(torch.int32))
         kv_valid = torch.clamp(pos + 1, max=clen)
+        if heads_shardable:
+            kk = constrain(cache["k"], "batch", None, "model", None)
+            vv = constrain(cache["v"], "batch", None, "model", None)
+        else:
+            # KV heads don't divide the model axis: shard head_dim on both
+            # q and kv so the score contraction is over the sharded dim
+            q = constrain(q, "batch", None, None, "model")
+            kk = constrain(cache["k"], "batch", None, None, "model")
+            vv = constrain(cache["v"], "batch", None, None, "model")
         out = chunked_attention(
-            q, cache["k"], cache["v"], causal=True, window=window,
+            q, kk, vv, causal=True, window=window,
             chunk=chunk, q_offset=pos, kv_positions=cache["pos"],
             kv_valid=kv_valid if window else None)
+    out = constrain(out, "batch", None, "model", None)
     y = dense(p["wo"], out.reshape(b, t, h * hd), backend)
-    return y, cache
+    return out_constrain(y, cfg.policy), cache
 
 
 # ---------------------------------------------------------------------------
@@ -237,9 +323,8 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
 
     pos = positions[:, 0] if positions.dim() > 1 else positions  # (B,)
     if cache is not None and t == 1:
-        bi = torch.arange(b, device=x.device)
-        cache["ckv"][bi, pos] = ckv[:, 0].to(cache["ckv"].dtype)
-        cache["kr"][bi, pos] = kr[:, 0].to(cache["kr"].dtype)
+        put_slots(cache["ckv"], pos, ckv[:, 0])
+        put_slots(cache["kr"], pos, kr[:, 0])
         ckv_all, kr_all = cache["ckv"], cache["kr"]
     else:
         ckv_all, kr_all = ckv, kr
@@ -248,13 +333,17 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
             cache["kr"][:, :t] = kr.to(cache["kr"].dtype)
 
     wuk = p["wuk"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, nd)
-    q_lat = torch.einsum("bthn,rhn->bthr", qn, wuk)           # (B,T,H,r)
+    q_lat = einsum("bthn,rhn->bthr", qn, wuk)           # (B,T,H,r)
     qq = torch.cat([q_lat, qr], -1)                           # (B,T,H,r+rd)
+    qq = constrain(qq, "batch", None, "model", None)
     kk = torch.cat([ckv_all, kr_all], -1)[:, :, None, :]      # (B,Tk,1,r+rd)
+    # gather the latent KV across the seq dim once per layer
+    kk = constrain(kk, "batch", None, None, None)
+    ckv_all = constrain(ckv_all, "batch", None, None)
     scale_fix = ((nd + rd) ** -0.5) / ((m.kv_lora_rank + rd) ** -0.5)
     out = chunked_attention(qq * scale_fix, kk, ckv_all[:, :, None, :],
                             causal=True, chunk=chunk, q_offset=pos)
     wuv = p["wuv"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, vd)
-    out = torch.einsum("bthr,rhv->bthv", out, wuv)
+    out = einsum("bthr,rhv->bthv", out, wuv)
     y = dense(p["wo"], out.reshape(b, t, h * vd), backend)
-    return y, cache
+    return out_constrain(y, cfg.policy), cache

@@ -36,6 +36,7 @@ from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, as_backend, dense, dense_init, embed,
     embed_init, norm_init, normal,
 )
+from repro_torch.sharding.context import constrain, einsum
 
 #: the padded vocab tail's logit
 NEG = -1e30
@@ -140,13 +141,17 @@ def _embed_inputs(p, batch: Dict, cfg: ArchConfig):
     if cfg.pos_embed == "sinusoidal":
         h = h + _sinusoidal(t, cfg.d_model, cd, h.device)[None]
     positions = torch.arange(t, device=h.device).expand(b, t)
+    h = constrain(h, "batch", None, None)
     return h, positions, off
 
 
 def _ce_chunk(hc, head_w, tgc, mkc, vmask):
     """Summed masked cross-entropy of one token chunk: logits in f32, the
     padded vocab at NEG."""
-    logits = torch.einsum("btd,dv->btv", hc, head_w.to(hc.dtype)).float()
+    logits = einsum("btd,dv->btv", hc, head_w.to(hc.dtype)).float()
+    # under a mesh the vocab dim is sharded on 'model'; DTensor's gather
+    # along a sharded dim fails, so the logits are replicated there first
+    logits = constrain(logits, "batch", None, None)
     logits = torch.where(vmask, logits, NEG)
     lse = torch.logsumexp(logits, -1)
     ll = torch.gather(logits, -1, tgc[..., None])[..., 0]
@@ -251,14 +256,18 @@ def make_caches(cfg: ArchConfig, batch: int, length: int, device=None):
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
-            backend: Backend = TORCH) -> Tuple[torch.Tensor, Any]:
+            backend: Backend = TORCH, caches=None
+            ) -> Tuple[torch.Tensor, Any]:
     """Encode the prompt, fill fresh caches, return last-position logits.
     ``batch`` holds tensors on the parameters' device: ``tokens`` (B,T)
     (and ``vision_embeds`` (B,P,d) ahead of them for the VLM), or
-    ``frames`` for audio."""
+    ``frames`` for audio.  ``caches``, fresh from :func:`make_caches` (the
+    sharded step passes them placed on its mesh), are filled in place;
+    by default they are made here."""
     backend = as_backend(backend)
     h, positions, _ = _embed_inputs(params, batch, cfg)
-    caches = make_caches(cfg, h.shape[0], cache_len, h.device)
+    if caches is None:
+        caches = make_caches(cfg, h.shape[0], cache_len, h.device)
     h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
                                        positions=positions, caches=caches,
                                        backend=backend,

@@ -10,10 +10,12 @@ capacity buffer through one-hot products:
 A token beyond an expert's capacity is dropped from that expert (its
 output is then the shared expert's, or zero).  The reference computes the
 router, the dispatch/combine and the expert products in plain jnp outside
-any Pallas kernel, so here they are plain ``torch.matmul`` /
-``torch.einsum``; only the shared expert's MLP goes through ``dense()``
+any Pallas kernel, so here they are plain ``torch.matmul`` / einsums
+(``sharding.context.einsum``: ``torch.einsum``, on local shards under a
+mesh); only the shared expert's MLP goes through ``dense()``
 and so through the backend's GEMM.  The reference's sharding constraints
-are dropped: the port runs on one device.
+are made at the same places (experts on 'model' under EP, the expert
+width under TP); they are no-ops without a mesh.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
-    TORCH, Backend, dense_init, mlp, mlp_init, normal,
+    TORCH, Backend, dense_init, mlp, mlp_init, normal, out_constrain,
 )
+from repro_torch.sharding.context import constrain, einsum, matmul
 
 GROUP_SIZE = 256
 
@@ -107,20 +110,29 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
     g = _group(s)
     sg = s // g
     cap = max(int(m.capacity_factor * sg * m.top_k / m.num_experts), 1)
+    ep = m.sharding == "ep"
 
     xg = x.reshape(g, sg, d)
-    logits = torch.matmul(xg, p["router"]["w"].to(x.dtype)).float()
+    xg = constrain(xg, "batch", None, None)
+    logits = matmul(xg, p["router"]["w"].to(x.dtype)).float()
     # combine/dispatch ride in the compute dtype, as in the reference
     combine, aux = route(logits, cfg, cap, x.dtype)
+    combine = constrain(combine, "batch", None, "model" if ep else None,
+                        None)
     dispatch = (combine > 0).to(x.dtype)
 
-    buf = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    # dispatch: (G,S,E,C) x (G,S,d) -> (E,G,C,d) — the EP all-to-all
+    buf = einsum("gsec,gsd->egcd", dispatch, xg)
+    buf = constrain(buf, "model" if ep else None, "batch", None, None)
     w = p["experts"]
-    h = torch.einsum("egcd,edf->egcf", buf, w["wi"].to(x.dtype))
-    hg = torch.einsum("egcd,edf->egcf", buf, w["wg"].to(x.dtype))
+    h = einsum("egcd,edf->egcf", buf, w["wi"].to(x.dtype))
+    hg = einsum("egcd,edf->egcf", buf, w["wg"].to(x.dtype))
     h = F.silu(hg) * h
-    out = torch.einsum("egcf,efd->egcd", h, w["wo"].to(x.dtype))
-    y = torch.einsum("gsec,egcd->gsd", combine, out).reshape(b, t, d)
+    h = constrain(h, "model" if ep else None, "batch", None,
+                  None if ep else "model")
+    out = einsum("egcf,efd->egcd", h, w["wo"].to(x.dtype))
+    out = constrain(out, "model" if ep else None, "batch", None, None)
+    y = einsum("gsec,egcd->gsd", combine, out).reshape(b, t, d)
     if m.n_shared:
-        y = y + mlp(p["shared"], x, cfg.act, backend)
-    return y, aux
+        y = y + mlp(p["shared"], x, cfg.act, backend, policy=cfg.policy)
+    return out_constrain(y, cfg.policy), aux

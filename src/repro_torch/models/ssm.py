@@ -6,8 +6,8 @@ Port of ``repro.models.ssm``.  Prefill runs the chunked SSD scan (K4
 ``ssd_scan`` under the kernel backend on the card, its plain version
 otherwise); decode advances the recurrence one step with O(1) state:
   conv_state (B, d_conv-1, conv_dim), ssm_state (B, H, N, P).
-The reference's sharding constraints are dropped: the port runs on one
-device.
+The reference's sharding constraints are made at the same places (heads
+on 'model' through the scan); they are no-ops without a mesh.
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense, dense_init, norm_init, normal,
+    out_constrain,
 )
+from repro_torch.sharding.context import constrain, einsum
 
 
 def dims(cfg: ArchConfig):
@@ -101,6 +103,7 @@ def mamba_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
     dt = F.softplus(dt.float() + p["dt_bias"])              # (B,T,H)
     log_a = -torch.exp(p["a_log"])[None, None, :] * dt      # (B,T,H) <= 0
     xh = xs.reshape(b, t, nheads, hp)
+    xh = constrain(xh, "batch", None, "model", None)
     bg = bs.reshape(b, t, g, n)
     cg = cs_.reshape(b, t, g, n)
     rep = nheads // g
@@ -118,9 +121,14 @@ def mamba_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
         else:
             bh_rep = bg.repeat_interleave(rep, 2)
             ch_rep = cg.repeat_interleave(rep, 2)
-        y = ops.ssd4(xdt.transpose(1, 2), la, bh_rep.transpose(1, 2),
-                     ch_rep.transpose(1, 2),
-                     use_kernel=backend.mode == "kernel", chunk=s.chunk)
+        # 4-D (B,H,T,.) keeps heads a shardable 'model' axis
+        x4 = constrain(xdt.transpose(1, 2), "batch", "model", None, None)
+        la4 = constrain(la, "batch", "model", None)
+        b4 = constrain(bh_rep.transpose(1, 2), "batch", "model", None, None)
+        c4 = constrain(ch_rep.transpose(1, 2), "batch", "model", None, None)
+        y = ops.ssd4(x4, la4, b4, c4, use_kernel=backend.mode == "kernel",
+                     chunk=s.chunk)
+        y = constrain(y, "batch", "model", None, None)
         y = y.transpose(1, 2)                              # (B,T,H,P)
         if state is not None:
             # prefill: closed-form final state (log_a <= 0 so the weights
@@ -128,7 +136,7 @@ def mamba_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
             #   S = a_total * S_in + sum_t exp(cum_T - cum_t) b_t (x*dt)_t
             cum = torch.cumsum(la, -1)                     # (B,H,T)
             wts = torch.exp(cum[..., -1:] - cum).transpose(1, 2)
-            s_new = torch.einsum("bthn,bthp->bhnp",
+            s_new = einsum("bthn,bthp->bhnp",
                                  bh_rep.float() * wts[..., None],
                                  xdt.float())
             s_new = s_new + torch.exp(cum[..., -1])[..., None, None] \
@@ -138,16 +146,17 @@ def mamba_apply(p, u: torch.Tensor, cfg: ArchConfig, *,
     else:
         # one-step recurrence: S = a*S + dt*x (outer) B ; y = C @ S
         a1 = torch.exp(log_a[:, 0])                         # (B,H)
-        bx = torch.einsum("bhn,bhp->bhnp",
+        bx = einsum("bhn,bhp->bhnp",
                           bg[:, 0].repeat_interleave(rep, 1).float(),
                           (xh[:, 0] * dt[:, 0, :, None]).float())
         ssm_new = a1[..., None, None] * state["ssm"] + bx
         ch = cg[:, 0].repeat_interleave(rep, 1).float()     # (B,H,N)
-        y = torch.einsum("bhn,bhnp->bhp", ch, ssm_new)[:, None]
+        y = einsum("bhn,bhnp->bhp", ch, ssm_new)[:, None]
         new_state = {"conv": new_conv.to(state["conv"].dtype),
                      "ssm": ssm_new}
 
     y = y.to(u.dtype) + p["d_skip"].to(u.dtype)[None, None, :, None] * xh
     y = y.reshape(b, t, d_inner)
     y = apply_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return dense(p["out_proj"], y, backend), new_state
+    return out_constrain(dense(p["out_proj"], y, backend), cfg.policy), \
+        new_state

@@ -34,6 +34,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense_init, mlp, mlp_init, norm_init, normal,
 )
+from repro_torch.sharding.context import constrain
+
+
+def constrain_sp(h):
+    """The sequence-parallel residual stream: seq sharded over 'model'."""
+    return constrain(h, "batch", "model", None)
 
 
 def layer(tree, i: int):
@@ -103,8 +109,12 @@ def block_apply(p, h, cfg: ArchConfig, *, positions, cache=None,
     if "moe" in p:
         y, aux = moe_mod.moe_apply(p["moe"], x, cfg, backend)
     else:
-        y, aux = mlp(p["mlp"], x, cfg.act, backend), 0.0
-    return h + y, new_cache, aux
+        y, aux = mlp(p["mlp"], x, cfg.act, backend, policy=cfg.policy), 0.0
+    h = h + y
+    if cfg.policy.sp and h.shape[1] > 1:
+        # sequence-parallel residual stream (Megatron-SP posture)
+        h = constrain_sp(h)
+    return h, new_cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,22 @@ The compressed sync halves the bytes of a cross-group gradient reduce
 unbiased: the quantization residual of step t is added back into step
 t+1's gradient before compression, so errors do not accumulate.
 
-``psum_compressed``, the mean-reduce of the compressed payload over a
-process group, belongs to the mesh half of the training port (ROADMAP
-queue 1, item 9) and is not here yet.
+:func:`psum_compressed` is the mean-reduce of the compressed payload over
+a process group (the reference's over a ``shard_map`` axis):
+
+    grads, ef = psum_compressed(grads, ef_state, group)
+
+g + ef -> bf16 -> all-reduce (sum) over the group -> f32 / group size,
+ef' = (g + ef) - Q.  As in the reference, no training step calls it
+(``launch/steps.make_train_step`` does not read
+``policy.grad_compression``); it is a function of its own.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.adamw import tree_map
 
@@ -39,3 +46,20 @@ def compress_tree(grads, ef_state):
     """:func:`compress` leaf by leaf; returns (payloads, residuals)."""
     pairs = tree_map(compress, grads, ef_state)
     return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
+
+
+def psum_compressed(grads, ef_state, group=None):
+    """Compressed mean-reduce of ``grads`` over the process ``group`` (the
+    default world): returns ``(mean, new_ef)``, the mean in f32.
+
+    The bf16 payloads are summed by the backend in bf16 (``gloo`` and
+    ``nccl`` both reduce bf16); the reference's ``psum`` of bf16 payloads
+    lowers on the CPU to an f32 sum rounded once to bf16, so the two means
+    may differ by the bf16 roundings of the partial sums."""
+    q, ef = compress_tree(grads, ef_state)
+    n = dist.get_world_size(group)
+
+    def mean(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x.float() / n
+    return tree_map(mean, q), ef

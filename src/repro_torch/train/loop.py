@@ -10,10 +10,10 @@
 * metrics: JSONL per step, with the reference's keys.
 
 :func:`make_step` is the plain single-device training step (the
-reference's examples jit the same composition; ``launch/steps.
-make_train_step`` with microbatches and a mesh is the mesh half of the
-port): ``loss_fn`` on ``backend="torch"``, its gradients by autograd,
-then one AdamW step in place.
+reference's examples jit the same composition; the sharded, microbatched
+step on a mesh is ``launch/steps.make_train_step``): ``loss_fn`` on
+``backend="torch"``, its gradients by autograd, then one AdamW step in
+place.
 """
 from __future__ import annotations
 

@@ -931,3 +931,64 @@ def test_adamw_step_on_the_card_matches_the_cpu(cuda, moment_dtype,
         else:
             torch.testing.assert_close(sg[path], sc[path], rtol=1e-5,
                                        atol=1e-9)
+
+
+MESH_SCRIPT = """
+import torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.kernels import ame_gemm as k1
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import model as lm
+from repro_torch.sharding import rules
+dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+dev = torch.device("cuda", 0)
+mesh = make_debug_mesh((1, 1), device="cuda")
+cfg = get("qwen3-1.7b").reduced().with_policy(compute_dtype="bfloat16")
+pf, _, psp = steps.make_prefill_step(cfg, mesh, ShapeSpec("p", 24, 2, "prefill"),
+                                     backend="kernel")
+df, _, dsp = steps.make_decode_step(cfg, mesh, ShapeSpec("d", 24, 2, "decode"),
+                                    backend="kernel")
+gen = torch.Generator(device=dev).manual_seed(0)
+params = lm.compute_params(lm.init(cfg, gen, device=dev), cfg)
+dp = rules.distribute(params, psp[0], mesh)
+tok = torch.randint(0, cfg.vocab_size, (2, 16), device=dev, generator=gen)
+with torch.no_grad():
+    want, caches = lm.prefill(params, {"tokens": tok}, cfg, cache_len=24,
+                              backend="kernel")
+k1.launches = 0
+got, dc = pf(dp, rules.distribute({"tokens": tok}, psp[1], mesh))
+torch.cuda.synchronize()
+assert k1.launches == 7 * cfg.n_layers, k1.launches
+assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)
+nt = want.argmax(-1)
+for i in range(6):
+    pos = torch.full((2,), 16 + i, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        want, caches = lm.decode_step(params, nt[:, None], pos, caches, cfg,
+                                      backend="kernel")
+    got, dc = df(dp, rules.distribute(nt[:, None], dsp[1], mesh),
+                 rules.distribute(pos, dsp[2], mesh), dc)
+    assert torch.equal(got.full_tensor(), want), i
+    nt = want.argmax(-1)
+dist.destroy_process_group()
+print("mesh OK")
+"""
+
+
+def test_sharded_serve_on_a_one_card_mesh_equals_the_unsharded(cuda):
+    """A 1-rank nccl world and a 1x1 mesh (its own process: a process
+    group is global to its process): the sharded prefill launches K1 once
+    per projection, and its logits and 6 decode steps' are ``torch.equal``
+    to the unsharded serve's (the same kernels at the same shapes)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", MESH_SCRIPT], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "mesh OK" in r.stdout, r.stderr[-3000:]

@@ -32,7 +32,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.serve.__main__", "repro_torch.optim.adamw",
             "repro_torch.optim.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.train.loop",
-            "repro_torch.train.__main__"} <= set(mods)
+            "repro_torch.train.__main__", "repro_torch.sharding.context",
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.params", "repro_torch.launch.modelflops",
+            "repro_torch.launch.memmodel", "repro_torch.launch.traceanalysis",
+            "repro_torch.launch.dryrun", "repro_torch.launch.attribute",
+            "repro_torch.launch.distributed_train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
