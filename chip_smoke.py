@@ -20,9 +20,11 @@ Phases (any failure exits non-zero and prints no result line):
              models, 300; mixtral-8x22b's attention and deepseek-v3-671b's
              MLA, dense MLP and shared-expert projections at m = 4 and 64;
              the train path's qwen3-1.7b and hubert-xlarge layers at m =
-             2048 and internvl2-76b's at m = 1, 4 and 512)
+             2048 and internvl2-76b's at m = 1, 4 and 512; the quickstart's
+             256x192x96 in f32, on the fma variant)
              and the ragged test shapes;
-             every main-path shape must take the tensor-core variant, and
+             every other main-path shape must take the tensor-core
+             variant, and
              each line names the variant it took; time the kernel and
              torch.matmul (the library yardstick, which the port never
              calls) on the device and with events, the plain version with
@@ -62,11 +64,19 @@ Phases (any failure exits non-zero and prints no result line):
              and the cluster values of results/BENCH_runtime.json (makespan
              parity 294016 cycles, 4-stack efficiencies 0.994646 GEMM and
              0.986539 GEMV) exactly; modeled cycles, not H100 numbers.
-9. ops     — the ops entry point (this slice's path): ops.elementwise and
+9. quickstart — python -m repro_torch.quickstart, the port of
+             examples/quickstart.py (its three parts with its inputs):
+             main() on the card, K1's counts set to 0 just before and read
+             just after (one launch, on the fma variant: f32 operands),
+             every printed line but the kernel line == main("cpu")'s, K1
+             within the f32 TOL of ref.gemm; then the CLI with no flags in
+             a process of its own (its default is the card), ending
+             ``quickstart OK``.  Phase 3 times K1 at this shape.
+10. ops    — the ops entry point: ops.elementwise and
              ops.attention at the model shapes, every kernel count set to
              0 just before and read just after; outputs held against the
              plain versions.
-10. serve  — full-width qwen3-1.7b (28 layers), then full-width
+11. serve  — full-width qwen3-1.7b (28 layers), then full-width
              mamba2-370m (48 layers), then full-width zamba2-2.7b (54
              mamba layers, 9 applications of 2 shared attention blocks,
              ``lora_b`` filled with seeded values), f32 parameters and bf16
@@ -91,7 +101,7 @@ Phases (any failure exits non-zero and prints no result line):
              LoRA merge and one MoE layer's router, dispatch, expert and
              combine products timed on their own; a reduced model on the
              card is held against the same model on the CPU.
-11. offload — the serve path's PIM decode offload, with obs and faults:
+12. offload — the serve path's PIM decode offload, with obs and faults:
              full-width qwen3-1.7b served through ``Server(backend=
              "kernel", pim_offload=DecodeOffload(16 channels x 4 stacks,
              async, KV offload, metrics, OFFLOAD_PLAN), faults=
@@ -113,14 +123,14 @@ Phases (any failure exits non-zero and prints no result line):
              from the port alone with the reference's setups
              (benchmarks/paper_figures.py).  Modeled Aquabolt-XL cycles;
              the wall times are the card host's.
-12. traffic — results/BENCH_runtime.json's serve section (the
+13. traffic — results/BENCH_runtime.json's serve section (the
              qwen3-1.7b and mixtral-8x22b SLO frontiers, disaggregated vs
              colocated, their knees and the bursty point) through the
              port's TrafficServer with the reference's host constants,
              exactly; then the same frontiers with the H100 descriptor
              (repro_torch/launch/hw.py), a modeled result.  Host only, in
-             a separate process while phases 3-11 and 13 run on the card.
-13. train  — with the serve models freed: full-width qwen3-1.7b (28
+             a separate process while phases 3-12 and 14 run on the card.
+14. train  — with the serve models freed: full-width qwen3-1.7b (28
              layers, batch 4 x 512) and hubert-xlarge (48 layers, masked
              frames, 2 x 1024), f32 parameters, bf16 compute and remat as
              their policies say, each train TRAIN_STEPS AdamW steps on
@@ -139,7 +149,7 @@ Phases (any failure exits non-zero and prints no result line):
              repro_torch.train`` with its defaults (300 steps, CE down >=
              0.5 nats, ``train_lm OK``) and the resume check at its size;
              last, a reduced qwen3 trained on the card and on the CPU.
-14. mesh   — the mesh half (repro_torch.launch.steps on DTensor) on a
+15. mesh   — the mesh half (repro_torch.launch.steps on DTensor) on a
              1-rank nccl world and a 1x1 mesh: full-width qwen3-1.7b's
              sharded prefill (MESH_SERVE, backend="kernel", K1 counts set
              to 0 just before and read just after: 196 launches, all mma)
@@ -155,7 +165,7 @@ Phases (any failure exits non-zero and prints no result line):
              ranks, both dataflows), the fake-world dry-run of qwen3-1.7b
              decode_32k on the 512-rank multi-pod mesh (its traced
              per-device peak beside memmodel.estimate) and DRYRUN_FAMILIES.
-15. report — fail if any device time reads below its bound; one JSON
+16. report — fail if any device time reads below its bound; one JSON
              line of every ported kernel, then the last line
              ``{"ok": true, "device": {...}}``.
 """
@@ -251,6 +261,11 @@ CACHE_LEN = {"qwen3-1.7b": 128, "mamba2-370m": 512, "zamba2-2.7b": 512,
              "mixtral-8x22b": 128, "deepseek-v3-671b": 128}
 #: quickstart part 2's GEMM
 RUNTIME_GEMM = (256, 192, 96)
+#: K1 at quickstart part 2's (m, k, n) in f32, as repro_torch.quickstart
+#: calls it: the one main path whose K1 launch takes the fma variant
+QUICKSTART_GEMM = RUNTIME_GEMM
+#: seconds for ``python -m repro_torch.quickstart`` in a process of its own
+QUICKSTART_TIMEOUT = 300
 #: the modeled cluster values the runtime must reproduce (``cluster``)
 BENCH_RUNTIME = ROOT / "results" / "BENCH_runtime.json"
 #: the committed decode-offload roofline artifact the port's dump must equal
@@ -537,6 +552,7 @@ def phase_kernels(cfgs):
     cases += [("test", "ragged", m, k, n, dt)
               for m, k, n in ((100, 130, 70), (257, 33, 129))
               for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("quickstart", "part 2", *QUICKSTART_GEMM, torch.float32))
     records = []
     for model, nm, m, k, n, dt in cases:
         esz = torch.finfo(dt).bits // 8
@@ -556,8 +572,9 @@ def phase_kernels(cfgs):
         err = float(diff.max())
         ok = bool((diff <= atol + rtol * want.float().abs()).all())
         var = k1.variant(a, b)
-        if model != "test" and var != "mma":
-            ok = False                  # a main-path shape must take mma
+        if model != "test" and var != ("fma" if model == "quickstart"
+                                       else "mma"):
+            ok = False          # each main-path shape takes its variant
         iters = 20
         ms = timed_ms(k1.ame_gemm, args, iters)
         plain_ms = timed_ms(ref.gemm, args, iters)
@@ -608,7 +625,7 @@ def phase_kernels(cfgs):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version or a "
-                             f"main-path shape missed the mma variant: {bad}")
+                             f"main-path shape missed its variant: {bad}")
     return records
 
 
@@ -1217,6 +1234,69 @@ def phase_runtime(dev, card_name):
                              "results/BENCH_runtime.json")
 
 
+def phase_quickstart(dev):
+    """``repro_torch.quickstart``, the port of examples/quickstart.py: its
+    ``main()`` on the card in this process (K1's counts set to 0 just
+    before and read just after: one launch, on fma) against
+    ``main("cpu")``, every line ``==`` but the kernel line; then ``python
+    -m repro_torch.quickstart`` with no flags (its default is the card).
+    Returns the launches."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch import quickstart
+
+    def lines(device):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = quickstart.main(device)
+        if rc != 0:
+            raise AssertionError(f"quickstart.main({device!r}) returned {rc}")
+        return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+    (card, card_s), launches, variants = _count_k1(lambda: lines(None))
+    cpu, cpu_s = lines("cpu")
+    for line in card:
+        log(f"[quickstart] {line}")
+    kernel = [i for i, line in enumerate(card)
+              if line.startswith("ame_gemm (")]
+    if len(kernel) != 1:
+        raise AssertionError(f"quickstart printed {len(kernel)} kernel lines")
+    k_card, k_cpu = card.pop(kernel[0]), cpu.pop(kernel[0])
+    same = card == cpu
+    log(f"[quickstart] main() on {dev} vs main('cpu'): every other line "
+        f"{'==' if same else 'DIFFERS'}; CPU's kernel line: {k_cpu}; "
+        f"ame_gemm launches {launches}, by variant {variants}; wall "
+        f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    if not same:
+        raise AssertionError("quickstart's lines differ between the card "
+                             "and the CPU")
+    if not (k_card.startswith("ame_gemm (hand-written CUDA kernel K1, fma ")
+            and k_cpu.startswith("ame_gemm (plain version, CPU)")):
+        raise AssertionError(f"the kernel lines do not name K1's fma variant "
+                             f"and the plain version: {k_card!r}, {k_cpu!r}")
+    if launches != 1 or variants != {"mma": 0, "fma": 1}:
+        raise AssertionError("quickstart did not launch K1 once, on fma")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.quickstart"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=QUICKSTART_TIMEOUT)
+    out = r.stdout.splitlines()
+    log(f"[quickstart] python -m repro_torch.quickstart (no flags): exit "
+        f"{r.returncode}, {time.perf_counter() - t0:.1f}s wall, kernel "
+        f"line: {next((x for x in out if x.startswith('ame_gemm (')), '')}"
+        f"; last line {out[-1] if out else ''!r}")
+    if r.returncode != 0 or not out or out[-1] != "quickstart OK" \
+            or "hand-written CUDA kernel K1" not in r.stdout:
+        raise AssertionError(f"python -m repro_torch.quickstart failed: "
+                             f"{r.stderr[-2000:]}")
+    return {"launches": {"ame_gemm": launches, "ssd_scan": 0},
+            "variants": variants}
+
+
 def phase_ops(dev):
     """This slice's path, through the ops entry point: ops.elementwise and
     ops.attention at the model shapes, the kernel counts set to 0 just
@@ -1719,12 +1799,14 @@ def phase_offload_serve(cfg, dev, clean_tokens):
         srv.submit(Request(uid=u, prompt=p, max_new=MAX_NEW))
     torch.cuda.synchronize()
     k1.launches = k4.launches = 0                     # main path starts
+    k1.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
     done = srv.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
                 "ssd_scan": k4.launches}
+    k1_variants = dict(k1.launches_by_variant)
     forwards = srv.prefills + srv.decode_steps
     want = {"ame_gemm": k1_per_forward(cfg) * forwards, "ssd_scan": 0}
     inj = off.rt.faults
@@ -1732,7 +1814,7 @@ def phase_offload_serve(cfg, dev, clean_tokens):
     log(f"[offload] {len(done)} completed, {len(srv.failed_requests)} "
         f"failed, {srv.prefills} prefills + {srv.decode_steps} decode steps "
         f"in {wall:.3f}s wall (synchronised); launches {launches} "
-        f"(expected {want})")
+        f"(expected {want}), K1 by variant {k1_variants}")
     log(f"[offload] faults: retries_total={srv.retries_total} "
         f"failed_requests={len(srv.failed_requests)} shed={srv.shed} "
         f"channel_failures={inj.counters.get('channel_failures', 0):.0f} "
@@ -1741,9 +1823,9 @@ def phase_offload_serve(cfg, dev, clean_tokens):
         f"failed={sorted(inj.failed)} surviving_fraction="
         f"{off.surviving_fraction:.4f}; latency_summary retries="
         f"{summ['retries']} failed={summ['failed']}")
-    if launches != want or launches["ame_gemm"] == 0:
+    if launches != want or launches["ame_gemm"] == 0 or k1_variants["fma"]:
         raise AssertionError("the offload serve did not go through K1 once "
-                             "per projection")
+                             "per projection on mma")
     if len(done) + len(srv.failed_requests) != N_REQUESTS:
         raise AssertionError("the offload serve lost requests")
     mismatched = [r.uid for r in done if r.out_tokens != clean_tokens[r.uid]]
@@ -2567,7 +2649,9 @@ def _mesh_host_results(procs):
         log(f"[mesh] dry-run {r['arch']} {r['shape']} single, "
             f"{r.get('n_layers')} layers: ok {r.get('ok')} {r.get('step')} "
             f"flops/dev {r.get('flops', 0):.4g}, peak/dev "
-            f"{mem.get('peak_bytes_per_device', 0) / 2 ** 30:.3f} GiB, "
+            f"{mem.get('peak_bytes_per_device', 0) / 2 ** 30:.3f} GiB beside "
+            f"memmodel.estimate "
+            f"{r.get('memmodel', {}).get('total', 0) / 2 ** 30:.3f} GiB, "
             f"trace {r.get('trace_s')} s {r.get('error', '')[:300]}")
     if len(fams) != len(DRYRUN_FAMILIES) or not all(r.get("ok") for r in fams):
         raise AssertionError("a family's dry-run cell failed")
@@ -2829,7 +2913,8 @@ def check_bounds(records):
 def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
                  ops_launches):
     """K1's entry: one qwen3 decode layer's seven calls at M = SLOTS,
-    summed.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
+    summed; its ``fma`` entry, the quickstart's one f32 call, the only
+    main-path launch of that variant.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
     of the mamba serve, with the variant it took.  K2's: an (8192, 8192)
     bf16 add.  K3's: one qwen3-1.7b layer's causal prefill attention.
     ``launches``: each kernel's count on the paths that run it (the
@@ -2842,11 +2927,15 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     total = {key: sum(r[key] for r in layer)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "device_ms", "library_device_ms")}
+    qs = [r for r in k1_records if r["model"] == "quickstart"][0]
     main = [r for r in k4_records if r["kind"] == "main"
             and r["model"] == "mamba2-370m" and r["t"] == LONG_PROMPT][0]
     by_path = {name: {model: s["launches"][name]
                       for model, s in serves.items()}
                for name in ("ame_gemm", "ssd_scan")}
+    # every path but the quickstart fails on a K1 launch that is not mma
+    k1_fma = sum(s.get("variants", {}).get("fma", 0) for s in serves.values())
+    k1_total = sum(by_path["ame_gemm"].values())
     ew = [r for r in k2_records if r["kind"] == "model"
           and r["shape"] == (8192, 8192) and r["op"] == "add"][0]
     at = [r for r in k3_records if r["kind"] == "qwen3-1.7b prefill"][0]
@@ -2857,8 +2946,9 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ame_gemm.cu",
         "replaces": "src/repro/kernels/ame_gemm.py:78",
-        "launches": sum(by_path["ame_gemm"].values()),
+        "launches": k1_total,
         "launches_by_path": by_path["ame_gemm"],
+        "launches_by_variant": {"mma": k1_total - k1_fma, "fma": k1_fma},
         "max_abs_err": max(r["max_abs_err"] for r in k1_records),
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -2870,6 +2960,12 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "library_device_ms": total["library_device_ms"],
         "work": f"one qwen3-1.7b decoder layer's 7 K1 calls at decode, "
                 f"M={SLOTS}, bf16",
+        "fma": {**{key: qs[key] for key in timed + (
+                    "max_abs_err", "host_us", "library_host_us")},
+                "launches": k1_fma,
+                "work": "the quickstart's one K1 call, (m,k,n)=(%d,%d,%d), "
+                        "f32; library torch.matmul, TF32 off"
+                        % QUICKSTART_GEMM},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2935,7 +3031,7 @@ def main() -> int:
 
 
 def phases_on_card(name, smi):
-    """Phases 2-11, 13 and 14 and the bounds check; returns kernels_line's
+    """Phases 2-12, 14 and 15 and the bounds check; returns kernels_line's
     inputs.  ``smi`` is the card's name and power limit (nvidia-smi)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2955,9 +3051,9 @@ def phases_on_card(name, smi):
     k3_records = phase_attention(dev)
     phase_engine(dev)
     phase_runtime(dev, name)
+    serves = {"quickstart": phase_quickstart(dev)}
     ops_launches = phase_ops(dev)
     torch.cuda.empty_cache()
-    serves = {}
     for cfg, small_prompt in ((qwen, 16), (mamba, 40), (zamba, 40),
                               (mixtral, 16), (deepseek, 16)):
         serves[cfg.name] = phase_serve(cfg, dev)

@@ -1,9 +1,11 @@
 """hubert-xlarge [audio] — 48L d_model=1280 16H d_ff=5120 vocab=504
 (masked-prediction classes); encoder-only.  [arXiv:2106.07447; unverified]
 
-The reference's config, field for field.  The port does not build the
-encoder family yet (``models/model.py`` refuses it: ROADMAP.md, queue 1,
-item 7); its frame embeddings are stubbed as in the reference.
+The reference's config, field for field.  The port builds the encoder
+family: it trains on ``backend="torch"``, and its forward and loss run K1
+on the kernel backend (forward-only); there is no serving path, as the
+model is encoder-only.  Its frame embeddings are stubbed as in the
+reference.
 """
 from repro_torch.configs.base import ArchConfig, Policy, register
 

@@ -2,9 +2,10 @@
 vocab=128256; InternViT + LLM backbone.  [arXiv:2404.16821; unverified]
 
 The reference's config (the language backbone), field for field.  The
-port does not build the VLM family yet (``models/model.py`` refuses it:
-ROADMAP.md, queue 1, item 7); its patch embeddings are stubbed as in the
-reference.
+port builds the VLM family: it trains on ``backend="torch"``, and its
+forward and loss run K1 on the kernel backend (forward-only), as do its
+prefill and decode when it serves.  Its patch embeddings are stubbed as
+in the reference.
 """
 from repro_torch.configs.base import ArchConfig, Policy, register
 

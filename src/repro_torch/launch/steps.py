@@ -123,13 +123,19 @@ def make_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec,
                     lambda p: torch.zeros_like(p, dtype=accum_dtype),
                     params)
                 ls, mets = [], []
+                # one accumulator tree, as the reference's scan carry:
+                # each microbatch's tree is added in place and dropped
+                # before the next backward
                 for mbatch in _microbatches(batch, mb, mesh, cfg):
                     l, m, g = value_and_grad(params, mbatch)
-                    grads = adamw.tree_map(
-                        lambda a, gg: a + gg.to(a.dtype), grads, g)
+                    with torch.no_grad():
+                        adamw.tree_map(lambda a, gg: a.add_(gg.to(a.dtype)),
+                                       grads, g)
+                    del g
                     ls.append(l)
                     mets.append(m)
-                grads = adamw.tree_map(lambda g: g / mb, grads)
+                with torch.no_grad():
+                    adamw.tree_map(lambda g: g.div_(mb), grads)
                 loss = torch.stack(ls).mean()
                 metrics = {k: torch.stack([m[k] for m in mets]).mean()
                            for k in mets[0]}

@@ -684,6 +684,34 @@ def test_pim_gemm_on_the_card_is_bit_exact_with_the_cpu(cuda, channels,
     assert rest0 == rest1
 
 
+def test_quickstart_on_the_card_prints_the_cpu_lines(cuda):
+    """``repro_torch.quickstart.main()`` (the card by default) against
+    ``main("cpu")``: every line ``==`` but the kernel line, which names
+    K1's fma variant (f32 operands; ``main`` raises if K1 is not within
+    the f32 TOL of ``ref.gemm``); one K1 launch, on fma."""
+    import contextlib
+    import io
+
+    from repro_torch import quickstart
+
+    def lines(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert quickstart.main(device) == 0
+        return buf.getvalue().splitlines()
+    before = dict(k1.launches_by_variant)
+    card = lines(None)
+    after = dict(k1.launches_by_variant)
+    cpu = lines("cpu")
+    assert {v: after[v] - before[v] for v in after} == {"mma": 0, "fma": 1}
+    kernel = [i for i, line in enumerate(card) if line.startswith("ame_gemm (")]
+    assert len(kernel) == 1
+    line = card.pop(kernel[0])
+    assert cpu.pop(kernel[0]).startswith("ame_gemm (plain version, CPU)")
+    assert card == cpu and card[-1] == "quickstart OK"
+    assert line.startswith("ame_gemm (hand-written CUDA kernel K1, fma ")
+
+
 # ---------------------------------------------------------------------------
 # the numeric decode offload: on the card, equal to the CPU
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.launch.params", "repro_torch.launch.modelflops",
             "repro_torch.launch.memmodel", "repro_torch.launch.traceanalysis",
             "repro_torch.launch.dryrun", "repro_torch.launch.attribute",
-            "repro_torch.launch.distributed_train"} <= set(mods)
+            "repro_torch.launch.distributed_train",
+            "repro_torch.quickstart"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -9,9 +9,22 @@ CPU and without a process group.
   shapes (a duck-typed mesh: the builders read only its sizes until the
   step runs).
 * ``_split_microbatches`` splits as the reference's does.
+* The sharded train step sums its microbatch gradients into one tree in
+  place, as the reference's ``lax.scan`` carries one
+  (``memmodel.estimate`` counts one): its traced peak on a 1-rank fake
+  world stays at one microbatch's, and on a 1-rank ``gloo`` world its
+  parameters, optimizer state and loss are ``torch.equal`` to the same
+  step summed out of place.  Each runs in a subprocess of its own (a
+  process group is global to its process).
 
 The steps themselves run on real meshes in ``test_torch_distributed.py``.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -36,6 +49,8 @@ from test_torch_sharding import FakeMesh, MULTI, SINGLE, jflat, tflat
 
 #: the reference's per-chip capacity (repro/launch/hw.py), passed in
 REF_HBM = 16 * 2 ** 30
+ROOT = Path(__file__).resolve().parents[1]
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
 
 @pytest.mark.parametrize("arch", all_names())
@@ -134,3 +149,142 @@ def test_split_microbatches_matches_the_reference():
         {k: torch.from_numpy(v) for k, v in batch.items()}, 4)
     for k in batch:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+#: the microbatched steps' reduced qwen3-1.7b (examples/distributed_train.py's
+#: widths): parameters dominate its memory, so one extra gradient tree
+#: shows in the peak
+TINY_QWEN3 = """
+from repro_torch.configs import get
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.mesh import make_debug_mesh
+def tiny(mb):
+    return get("qwen3-1.7b").reduced().replace(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=512).with_policy(microbatches=mb)
+"""
+
+PEAK_SCRIPT = TINY_QWEN3 + """
+import json
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.launch import dryrun, steps, traceanalysis
+dryrun.fake_world(1)
+mesh = make_debug_mesh((1, 1), device="cpu")
+shape = ShapeSpec("tiny", 8, 8, "train")
+out = {}
+for mb in (1, 2, 4):
+    cfg = tiny(mb)
+    fn, shapes, specs = steps.make_train_step(cfg, mesh, shape)
+    with FakeTensorMode():
+        args = dryrun._inputs(cfg, shape, "train_step", shapes, specs, mesh)
+        _, rep = traceanalysis.trace(fn, *args)
+        out["tree"] = traceanalysis.local_bytes(args[0])
+    out[mb] = rep.peak_bytes
+print(json.dumps(out))
+"""
+
+
+def _run(script):
+    r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=ENV,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_microbatches_add_no_gradient_tree_to_the_traced_peak():
+    """The sharded train step traced under ``FakeTensorMode`` on a 1x1
+    mesh: at 2 and 4 microbatches its peak stays within a tenth of one
+    parameter tree of the 1-microbatch peak (summed out of place, the
+    accumulator, the microbatch's tree and their sum are live at once:
+    one tree more)."""
+    out = _run(PEAK_SCRIPT)
+    tree = out["tree"]
+    assert tree > 0 and out["1"] > tree
+    for mb in ("2", "4"):
+        assert out[mb] - out["1"] <= tree / 10, (mb, out)
+
+
+EQUAL_SCRIPT = TINY_QWEN3 + """
+import json, torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import steps
+from repro_torch.models import model as lm
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules
+from repro_torch.sharding.context import use_mesh
+from repro_torch.train.loop import batch_to, grad_tree
+
+MB, STEPS = 4, 2
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+mesh = make_debug_mesh((1, 1), device="cpu")
+cfg = tiny(MB)
+shape = ShapeSpec("tiny", 16, 8, "train")
+oc = adamw.AdamWConfig(peak_lr=5e-3, warmup_steps=1, total_steps=10)
+fn, _, (pspec, ospec, bspec) = steps.make_train_step(cfg, mesh, shape,
+                                                     opt_cfg=oc)
+ppl = rules.to_placements(pspec, mesh)
+
+
+def oracle(params, opt, batch):
+    # the step with its microbatch gradients summed out of place
+    params = adamw.tree_map(lambda p: p.requires_grad_(True), params)
+    with use_mesh(mesh), implicit_replication():
+        grads = adamw.tree_map(lambda p: torch.zeros_like(p), params)
+        ls = []
+        for mbatch in steps._microbatches(batch, MB, mesh, cfg):
+            loss, _ = lm.loss_fn(params, mbatch, cfg)
+            g = adamw.tree_map(lambda g, pl: g.redistribute(mesh, pl),
+                               grad_tree(loss, params), ppl)
+            grads = adamw.tree_map(lambda a, gg: a + gg.to(a.dtype), grads,
+                                   g)
+            ls.append(loss.detach())
+        grads = adamw.tree_map(lambda g: g / MB, grads)
+        params = adamw.tree_map(lambda p: p.requires_grad_(False), params)
+        params, opt, _ = adamw.apply(params, grads, opt, oc)
+        return params, opt, {"loss_out": torch.stack(ls).mean()}
+
+
+def full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def leaves(tree):
+    return [full(x) for _, x in adamw.tree_leaves(tree)]
+
+
+params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+pipe = SyntheticLM(cfg, shape, seed=0)
+runs = []
+for step_fn in (fn, oracle):
+    p = rules.distribute(adamw.tree_map(torch.clone, params), pspec, mesh)
+    o = rules.distribute(adamw.init(params, oc), ospec, mesh)
+    losses = []
+    for i in range(STEPS):
+        b = rules.distribute(batch_to(pipe.batch(i), "cpu"), bspec, mesh)
+        p, o, m = step_fn(p, o, b)
+        losses.append(full(m["loss_out"]))
+    runs.append((leaves(p), leaves(o), losses))
+(p1, o1, l1), (p2, o2, l2) = runs
+print(json.dumps({
+    "leaves": [len(p1), len(o1)],
+    "params": [bool(torch.equal(a, b)) for a, b in zip(p1, p2)],
+    "opt": [bool(torch.equal(a, b)) for a, b in zip(o1, o2)],
+    "loss": [[float(a), float(b)] for a, b in zip(l1, l2)],
+    "loss_equal": [bool(torch.equal(a, b)) for a, b in zip(l1, l2)]}))
+"""
+
+
+def test_in_place_accumulation_equals_the_out_of_place_sum():
+    """Two steps at 4 microbatches on a 1-rank ``gloo`` world (1x1 mesh):
+    the parameters, the optimizer state and the loss ``torch.equal`` to
+    the step that sums the microbatch gradients out of place (kept here as
+    the oracle): the same operations in the same order."""
+    out = _run(EQUAL_SCRIPT)
+    assert out["leaves"][0] > 0 and out["leaves"][1] > 0
+    assert len(out["params"]) == out["leaves"][0] and all(out["params"])
+    assert len(out["opt"]) == out["leaves"][1] and all(out["opt"])
+    assert all(out["loss_equal"]), out["loss"]
+    assert out["loss"][1][0] < out["loss"][0][0]
