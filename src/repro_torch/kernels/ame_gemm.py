@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.launch import hw
+from repro_torch.obs import spans
 
 #: (block_m, block_n, block_k) of the fma kernel, instantiated in
 #: csrc/ame_gemm.cu
@@ -123,7 +124,9 @@ def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
     the variant the operands take.
 
     Takes CUDA tensors only: the CPU path is :func:`repro_torch.kernels.
-    ref.gemm`, chosen by :func:`repro_torch.kernels.ops.gemm`.
+    ref.gemm`, chosen by :func:`repro_torch.kernels.ops.gemm`.  Under a
+    span recorder (:mod:`repro_torch.obs.spans`) each launch appends a
+    K1 record to the open span.
     """
     global launches
     out_dtype = out_dtype or a.dtype
@@ -166,6 +169,9 @@ def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
                            f"block {blocks}")
     launches += 1
     launches_by_variant[kind] += 1
+    rec = spans.ACTIVE
+    if rec is not None:
+        rec.launch("k1", m, k, n, a.element_size(), out.element_size())
     return out
 
 

@@ -36,6 +36,7 @@ from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, as_backend, dense, dense_init, embed,
     embed_init, norm_init, normal,
 )
+from repro_torch.obs import spans
 from repro_torch.sharding.context import constrain, einsum
 
 #: the padded vocab tail's logit
@@ -263,7 +264,11 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
     (and ``vision_embeds`` (B,P,d) ahead of them for the VLM), or
     ``frames`` for audio.  ``caches``, fresh from :func:`make_caches` (the
     sharded step passes them placed on its mesh), are filled in place;
-    by default they are made here."""
+    by default they are made here.  Under a span recorder
+    (:mod:`repro_torch.obs.spans`) this is a ``model.prefill`` span."""
+    rec = spans.ACTIVE
+    if rec is not None:
+        sid = rec.open("model.prefill")
     backend = as_backend(backend)
     h, positions, _ = _embed_inputs(params, batch, cfg)
     if caches is None:
@@ -273,15 +278,22 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
                                        backend=backend,
                                        causal=not cfg.encoder_only)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
-    return _logits(params, h[:, -1], cfg), caches
+    logits = _logits(params, h[:, -1], cfg)
+    if rec is not None:
+        rec.close(sid)
+    return logits, caches
 
 
 def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
                 backend: Backend = TORCH) -> Tuple[torch.Tensor, Any]:
     """One token per sequence.  tokens (B,1), positions (B,); ``caches``
-    is updated in place and returned."""
+    is updated in place and returned.  Under a span recorder this is a
+    ``model.decode_step`` span."""
     if cfg.pos_embed == "sinusoidal":
         raise NotImplementedError("encoder-only archs have no decode step")
+    rec = spans.ACTIVE
+    if rec is not None:
+        sid = rec.open("model.decode_step")
     backend = as_backend(backend)
     h = embed(params["embed"], tokens, cfg.compute_dtype_())   # (B,1,d)
     h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
@@ -289,4 +301,7 @@ def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
                                        caches=caches, backend=backend,
                                        causal=True)
     h = apply_norm(params["final_norm"], h, cfg.norm_eps)
-    return _logits(params, h[:, 0], cfg), caches
+    logits = _logits(params, h[:, 0], cfg)
+    if rec is not None:
+        rec.close(sid)
+    return logits, caches

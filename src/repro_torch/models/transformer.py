@@ -34,6 +34,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense_init, mlp, mlp_init, norm_init, normal,
 )
+from repro_torch.obs import spans
 from repro_torch.sharding.context import constrain
 
 
@@ -94,7 +95,12 @@ def block_init(gen, cfg: ArchConfig, dtype, device, layers: int = 0,
 def block_apply(p, h, cfg: ArchConfig, *, positions, cache=None,
                 backend: Backend = TORCH, causal=True):
     """Returns ``(h, cache, aux)``; ``aux`` is the MoE load-balance loss
-    (0.0 for an MLP block)."""
+    (0.0 for an MLP block).  Under a span recorder each half, its norm
+    and residual included, is a span: ``model.attention``, then
+    ``model.mlp`` (the MLP or the MoE)."""
+    rec = spans.ACTIVE
+    if rec is not None:
+        sid = rec.open("model.attention")
     x = apply_norm(p["ln1"], h, cfg.norm_eps)
     if cfg.mla is not None:
         a, new_cache = attn_mod.mla_apply(p["attn"], x, cfg,
@@ -105,12 +111,17 @@ def block_apply(p, h, cfg: ArchConfig, *, positions, cache=None,
             p["attn"], x, cfg, positions=positions, cache=cache,
             backend=backend, causal=causal)
     h = h + a
+    if rec is not None:
+        rec.close(sid)
+        sid = rec.open("model.mlp")
     x = apply_norm(p["ln2"], h, cfg.norm_eps)
     if "moe" in p:
         y, aux = moe_mod.moe_apply(p["moe"], x, cfg, backend)
     else:
         y, aux = mlp(p["mlp"], x, cfg.act, backend, policy=cfg.policy), 0.0
     h = h + y
+    if rec is not None:
+        rec.close(sid)
     if cfg.policy.sp and h.shape[1] > 1:
         # sequence-parallel residual stream (Megatron-SP posture)
         h = constrain_sp(h)

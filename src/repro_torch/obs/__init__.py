@@ -12,6 +12,10 @@ The runtime's ledgers answer "how much"; this package answers "when",
 * :mod:`repro_torch.obs.metrics` — counters / gauges / histograms with exact
   percentiles; instrumented in ``PIMRuntime``, ``PIMCluster``,
   ``DecodeOffload`` and the serve loop (TTFT/TPOT).
+* :mod:`repro_torch.obs.spans` — the served path on the card, on the host's
+  ``perf_counter`` clock: a :class:`SpanRecorder` given to ``Server(spans=)``
+  records each step's span tree (admission, prefill, decode, the model's
+  blocks) and every K1 launch under its span.
 
 ``python -m repro_torch.obs <file>`` summarizes a ``.trace`` file, a Chrome
 trace JSON, or a dumped :class:`ProfileReport`.  See
@@ -32,6 +36,7 @@ from repro_torch.obs.profile import (
     export_chrome_trace,
     profile_report,
 )
+from repro_torch.obs.spans import SpanRecorder
 
 __all__ = [
     "Counter",
@@ -41,6 +46,7 @@ __all__ = [
     "PathSegment",
     "ProfileReport",
     "Profiler",
+    "SpanRecorder",
     "US_PER_CYCLE",
     "chrome_trace",
     "critical_path",

@@ -56,7 +56,7 @@ def main(argv=None):
                          "timeline mode) and report critical-path + "
                          "TTFT/TPOT latency metrics")
     ap.add_argument("--wall", action="store_true",
-                    help="stamp request timestamps from time.time() "
+                    help="stamp request timestamps from time.perf_counter() "
                          "instead of the deterministic virtual clock")
     ap.add_argument("--traffic", type=float, metavar="RATE_RPS",
                     default=None,
@@ -86,7 +86,7 @@ def main(argv=None):
                  backend="kernel", device=dev)
 
     rng = np.random.default_rng(0)
-    t0 = time.time()
+    t0 = time.perf_counter()
     for uid in range(args.requests):
         plen = int(rng.integers(4, 32))
         srv.submit(Request(uid=uid,
@@ -95,7 +95,7 @@ def main(argv=None):
     done = srv.run_until_drained()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
 
     toks = sum(len(r.out_tokens) for r in done)
     lat = [r.finished_at - r.submitted_at for r in done]

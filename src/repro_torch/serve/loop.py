@@ -36,8 +36,13 @@ SimClock` by default — admission advances it by the prefill roofline,
 each decode iteration by the offload's ``StepRecord.pim_s`` (or the
 decode roofline of the :class:`~repro_torch.serve.traffic.HostCostModel`
 without a sidecar) — so :meth:`Server.latency_summary` is deterministic;
-``wall=True`` stamps wall-clock time instead, and an explicit ``clock=``
-shares one clock across servers.
+``wall=True`` stamps wall-clock time (``time.perf_counter``) instead,
+and an explicit ``clock=`` shares one clock across servers.
+
+``spans=SpanRecorder()`` (or setting ``Server.spans``) records a span
+tree of every step, with the model's spans and K1's launch records
+inside it, on the same ``perf_counter`` clock
+(:mod:`repro_torch.obs.spans`); the default, None, records nothing.
 
 :class:`TrafficServer` is the load-study twin: it drives a
 :class:`~repro_torch.serve.offload.DecodeOffload` under a stochastic
@@ -65,6 +70,7 @@ from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 from repro_torch.models.layers import as_backend
 from repro_torch.obs.metrics import Histogram
+from repro_torch.obs.spans import SpanRecorder
 from repro_torch.runtime.cluster import HostLinkLedger
 from repro_torch.serve.offload import DecodeOffload
 from repro_torch.serve.traffic import (SLO, HostCostModel, SimClock, Trace,
@@ -105,7 +111,8 @@ class Server:
                  max_retries: int = 2,
                  wall: bool = False, clock=None,
                  cost: Optional[HostCostModel] = None,
-                 backend="kernel", device=None):
+                 backend="kernel", device=None,
+                 spans: Optional[SpanRecorder] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         for leaf in (params["embed"]["table"], params["final_norm"]["scale"]):
@@ -126,6 +133,7 @@ class Server:
             else (WallClock() if wall else SimClock())
         self.cost = cost if cost is not None else HostCostModel(cfg)
         self.metrics = metrics
+        self.spans = spans
         self.active: List[Optional[Request]] = [None] * slots
         self.pos = np.zeros((slots,), np.int32)
         self.caches = lm.make_caches(cfg, slots, cache_len, self.device)
@@ -234,7 +242,7 @@ class Server:
                     "serve.retries", unit="requests",
                     help="fault knock-outs requeued with backoff").inc()
 
-    def _admit(self):
+    def _admit(self, rec: Optional[SpanRecorder] = None):
         """Prefill queued requests into free slots (FIFO among requests
         whose retry backoff has elapsed)."""
         for i in range(self.slots):
@@ -245,6 +253,8 @@ class Server:
                     return           # everything queued is backing off
                 req = self.queue.pop(idx)
                 self._check_prompt(req)
+                if rec is not None:
+                    sid = rec.open("serve.admit", uid=req.uid)
                 req.admitted_at = self.clock.now
                 if self.metrics is not None:
                     self.metrics.histogram(
@@ -257,8 +267,15 @@ class Server:
                                            self.cfg, cache_len=self.cache_len,
                                            backend=self.backend)
                 self.prefills += 1
+                if rec is not None:
+                    sub = rec.open("serve.splice")
                 _splice(self.caches, fresh, i)
+                if rec is not None:
+                    rec.close(sub)
+                    sub = rec.open("serve.first_token")
                 req.out_tokens.append(int(torch.argmax(logits[0])))
+                if rec is not None:
+                    rec.close(sub)
                 # the prefill's argmax IS the first token: TTFT closes here
                 self.clock.advance(self.cost.prefill_s(len(req.prompt)))
                 req.first_token_at = self.clock.now
@@ -274,6 +291,8 @@ class Server:
                 # sidecar's PIM pages once, decode grows it in place
                 if self._kv is not None:
                     self.pim_offload.kv_prefill(req.uid, len(req.prompt))
+                if rec is not None:
+                    rec.close(sid)
 
     def _retire(self, i: int):
         req = self.active[i]
@@ -299,17 +318,31 @@ class Server:
 
     def step(self):
         """One serving iteration: fire serve faults, admit, batched
-        decode, retire; count the iteration against the step deadline."""
+        decode, retire; count the iteration against the step deadline.
+        With a span recorder the iteration is one ``serve.step`` span."""
+        rec = self.spans
+        if rec is None:
+            return self._step(None)
+        sid = rec.open("serve.step")
+        try:
+            return self._step(rec)
+        finally:
+            rec.close(sid)
+
+    def _step(self, rec: Optional[SpanRecorder]):
         track_wall = self.metrics is not None \
             or self.step_deadline_s is not None
-        t0 = time.time() if track_wall else 0.0
+        t0 = time.perf_counter() if track_wall else 0.0
         self._iter += 1
         self._apply_serve_faults()
-        self._admit()
+        self._admit(rec)
         live = [i for i in range(self.slots) if self.active[i] is not None]
         if not live:
             # backing-off requests still count as pending work
             return bool(self.queue)
+        if rec is not None:
+            sid = rec.open("serve.decode",
+                           positions=[int(self.pos[i]) for i in live])
         toks = np.zeros((self.slots, 1), np.int64)
         for i in live:
             toks[i, 0] = self.active[i].out_tokens[-1]
@@ -318,16 +351,24 @@ class Server:
             torch.from_numpy(self.pos.astype(np.int64)).to(self.device),
             self.caches, self.cfg, backend=self.backend)
         self.decode_steps += 1
-        rec = None
+        rec_off = None
         if self.pim_offload is not None:
-            rec = self.pim_offload.step(
+            rec_off = self.pim_offload.step(
                 len(live),
                 request_ids=[self.active[i].uid for i in live])
         # the decode iteration's virtual duration: the PIM step's clocked
         # makespan when a sidecar ran it, else the host decode roofline
-        self.clock.advance(rec.pim_s if rec is not None
+        self.clock.advance(rec_off.pim_s if rec_off is not None
                            else self.cost.decode_step_s(len(live)))
+        if rec is not None:
+            sub = rec.open("serve.wait")
         nxt = torch.argmax(logits, -1).cpu().numpy()
+        if rec is not None:
+            rec.close(sub)
+            rec.close(sid)
+            # on serve.step; an admitted request is live: its first two
+            # tokens are here
+            rec.note(uids=[self.active[i].uid for i in live])
         for i in live:
             req = self.active[i]
             req.out_tokens.append(int(nxt[i]))
@@ -335,9 +376,13 @@ class Server:
             hit_eos = self.eos_id is not None and int(nxt[i]) == self.eos_id
             if (len(req.out_tokens) >= req.max_new or hit_eos
                     or int(self.pos[i]) >= self.cache_len - 1):
+                if rec is not None:
+                    sub = rec.open("serve.retire")
                 self._retire(i)
+                if rec is not None:
+                    rec.close(sub)
         if track_wall:
-            wall = time.time() - t0
+            wall = time.perf_counter() - t0
             if self.step_deadline_s is not None \
                     and wall > self.step_deadline_s:
                 self.deadline_misses += 1

@@ -70,19 +70,20 @@ class SimClock:
 
 
 class WallClock:
-    """``time.time()`` behind the :class:`SimClock` interface — the
-    ``Server(wall=True)`` escape hatch.  Advancing is a no-op: wall time
-    moves on its own."""
+    """``time.perf_counter()`` behind the :class:`SimClock` interface —
+    the ``Server(wall=True)`` escape hatch, on the clock of the serve
+    path's spans (:mod:`repro_torch.obs.spans`).  Advancing is a no-op:
+    wall time moves on its own."""
 
     @property
     def now(self) -> float:
-        return time.time()
+        return time.perf_counter()
 
     def advance(self, dt: float) -> float:
-        return time.time()
+        return time.perf_counter()
 
     def advance_to(self, t: float) -> float:
-        return time.time()
+        return time.perf_counter()
 
 
 # ---------------------------------------------------------------------------

@@ -1020,3 +1020,55 @@ def test_sharded_serve_on_a_one_card_mesh_equals_the_unsharded(cuda):
                        env=dict(os.environ, PYTHONPATH=str(root / "src")),
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0 and "mesh OK" in r.stdout, r.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# the serve path's span recorder on the card
+# ---------------------------------------------------------------------------
+
+
+def test_span_recorder_records_every_k1_launch_on_the_card(cuda):
+    """A reduced bf16 qwen3 served on the card with ``Server(spans=...)``
+    and without: the same tokens; the K1 records equal the rise in
+    ``ame_gemm.launches``, 7 a layer under each ``model.decode_step`` and
+    ``model.prefill``, each under its block's span, every launch on
+    ``mma``; no recorder is active afterwards."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    from repro_torch.obs import SpanRecorder, spans
+    from repro_torch.serve.loop import Request, Server
+    cfg = get("qwen3-1.7b").reduced().with_policy(compute_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    runs = []
+    for rec in (None, SpanRecorder()):
+        srv = Server(cfg, params, slots=3, cache_len=48, backend="kernel",
+                     device=cuda, spans=rec)
+        rng = np.random.default_rng(0)
+        for uid in range(5):
+            srv.submit(Request(uid=uid, prompt=rng.integers(
+                0, cfg.vocab_size, 6 + 4 * uid).astype(np.int32), max_new=5))
+        before, mma = k1.launches, k1.launches_by_variant["mma"]
+        srv.run_until_drained()
+        runs.append(({r.uid: r.out_tokens for r in srv.completed},
+                     k1.launches - before, srv))
+        assert k1.launches_by_variant["mma"] - mma == runs[-1][1]
+    (off, rise_off, _), (on, rise_on, srv) = runs
+    assert on == off and rise_on == rise_off
+    assert spans.ACTIVE is None
+    recs = srv.spans.records()
+    by_id = {s["id"]: s for s in recs["spans"]}
+    k1s = [ln for ln in recs["launches"] if ln["kernel"] == "k1"]
+    assert len(k1s) == rise_on
+    per = {}
+    for ln in k1s:
+        assert by_id[ln["span"]]["name"] in ("model.attention", "model.mlp")
+        assert ln["in_bytes"] == 2
+        top = by_id[by_id[ln["span"]]["parent"]]
+        per[top["id"]] = per.get(top["id"], 0) + 1
+    tops = [s for s in recs["spans"]
+            if s["name"] in ("model.decode_step", "model.prefill")]
+    assert len(tops) == srv.decode_steps + srv.prefills
+    assert all(per[s["id"]] == 7 * cfg.n_layers for s in tops)

@@ -1,0 +1,314 @@
+"""The serve path's span recorder (``repro_torch.obs.spans``).
+
+A reduced qwen3 is served twice on the CPU with the same requests, once
+with ``Server(spans=SpanRecorder())`` and once without: the tokens, the
+registry's counters and the virtual-time summary must be equal, the span
+tree well formed, and every K1 product made under its block's span.  On
+the CPU the kernel backend takes K1's plain version, so ``ops.gemm`` is
+replaced by the plain product followed by the record that the K1
+wrapper appends after a launch; the card runs the wrapper itself and
+holds its records to ``ame_gemm.launches`` (``tests/test_torch_gpu.py``).
+"""
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get
+from repro_torch.kernels import ops, ref
+from repro_torch.models import model as lm
+from repro_torch.obs import MetricsRegistry, SpanRecorder, spans
+from repro_torch.serve.loop import Request, Server
+from repro_torch.serve.traffic import WallClock
+
+SLOTS, CACHE_LEN = 2, 40
+#: K1 projections of a qwen3 layer: q, k, v, o, gate, up, down
+K1_PER_LAYER = 7
+
+
+def _recording_gemm(seen):
+    """``ops.gemm`` on the CPU, each kernel-backend product followed by
+    the record K1's wrapper appends; ``seen`` collects
+    :data:`spans.ACTIVE` at each such product."""
+    def gemm(a, b, *, use_kernel=False, out_dtype=None, **blocks):
+        out = ref.gemm(a, b, out_dtype=out_dtype)
+        if use_kernel:
+            rec = spans.ACTIVE
+            seen.append(rec)
+            if rec is not None:
+                rec.launch("k1", a.shape[0], a.shape[1], b.shape[1],
+                           a.element_size(), out.element_size())
+        return out
+    return gemm
+
+
+def _requests(vocab):
+    rng = np.random.default_rng(3)
+    return [Request(uid=10 + u,
+                    prompt=rng.integers(0, vocab, int(rng.choice([5, 9, 14]))
+                                        ).astype(np.int32),
+                    max_new=int(rng.integers(2, 7))) for u in range(5)]
+
+
+def _serve(cfg, params, rec):
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "gemm", _recording_gemm(seen))
+        srv = Server(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                     backend="kernel", device="cpu",
+                     metrics=MetricsRegistry(), spans=rec)
+        for req in _requests(cfg.vocab_size):
+            srv.submit(req)
+        srv.run_until_drained()
+    return srv, len(seen), seen
+
+
+@pytest.fixture(scope="module")
+def served():
+    cfg = get("qwen3-1.7b").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    off = _serve(cfg, params, None)
+    rec = SpanRecorder()
+    on = _serve(cfg, params, rec)
+    return cfg, off, on, rec.records()
+
+
+def _counters(srv):
+    return {k: v for k, v in srv.metrics.snapshot().items()
+            if v["type"] == "counter"}
+
+
+def test_recorder_changes_no_token_and_no_counter(served):
+    _, (off, rise_off, _), (on, rise_on, _), _ = served
+    assert {r.uid: r.out_tokens for r in on.completed} \
+        == {r.uid: r.out_tokens for r in off.completed}
+    assert len(on.completed) == 5
+    assert _counters(on) == _counters(off) and _counters(on)
+    assert on.latency_summary() == off.latency_summary()
+    assert rise_on == rise_off > 0
+
+
+def test_nothing_is_recorded_or_active_when_off(served):
+    _, (off, _, seen_off), (_, _, seen_on), _ = served
+    assert off.spans is None
+    assert seen_off and all(a is None for a in seen_off)
+    assert seen_on and all(isinstance(a, SpanRecorder) for a in seen_on)
+    assert spans.ACTIVE is None
+
+
+def test_span_tree_is_well_formed(served):
+    cfg, _, (on, _, _), recs = served
+    ss = recs["spans"]
+    by_id = {s["id"]: s for s in ss}
+    assert [s["id"] for s in ss] == list(range(len(ss)))
+    for s in ss:
+        assert s["end_ns"] is not None and s["start_ns"] <= s["end_ns"]
+        if s["parent"] is None:
+            assert s["name"] == "serve.step"
+            continue
+        p = by_id[s["parent"]]
+        assert p["start_ns"] <= s["start_ns"] and s["end_ns"] <= p["end_ns"]
+    steps = [s for s in ss if s["name"] == "serve.step"]
+    assert len(steps) == on._iter
+    kids = {}
+    for s in ss:
+        kids.setdefault(s["parent"], []).append(s)
+    # one admit, holding one prefill, per admission
+    admits = [s for s in ss if s["name"] == "serve.admit"]
+    assert len(admits) == on.prefills == 5
+    for a in admits:
+        assert [k["name"] for k in kids[a["id"]]] == [
+            "model.prefill", "serve.splice", "serve.first_token"]
+    assert sorted(a["attrs"]["uid"] for a in admits) \
+        == sorted(r.uid for r in on.completed)
+    # each token: the first in its admission, the rest in the steps
+    # whose uids name the request
+    for r in on.completed:
+        got = sum(r.uid in s["attrs"].get("uids", ()) for s in steps)
+        assert got == len(r.out_tokens) - 1
+    assert sum(s["name"] == "serve.retire" for s in ss) == len(on.completed)
+    # a decode under every step that gave a token, at the live slots'
+    # positions
+    blocks = ["model.attention", "model.mlp"] * cfg.n_layers
+    pos = {r.uid: len(r.prompt) for r in on.completed}
+    for st in steps:
+        dec = [k for k in kids.get(st["id"], [])
+               if k["name"] == "serve.decode"]
+        uids = st["attrs"].get("uids", [])
+        assert len(dec) == bool(uids)
+        for d in dec:
+            sub = kids[d["id"]]
+            assert [k["name"] for k in sub] == ["model.decode_step",
+                                                "serve.wait"]
+            assert sorted(d["attrs"]["positions"]) \
+                == sorted(pos[u] for u in uids)
+            for u in uids:
+                pos[u] += 1
+            assert [k["name"] for k in kids[sub[0]["id"]]] == blocks
+    for pf in (s for s in ss if s["name"] == "model.prefill"):
+        assert [k["name"] for k in kids[pf["id"]]] == blocks
+
+
+def _ancestor(by_id, sid, names):
+    while sid is not None:
+        if by_id[sid]["name"] in names:
+            return by_id[sid]
+        sid = by_id[sid]["parent"]
+    return None
+
+
+def test_k1_products_sit_in_their_block_spans(served):
+    cfg, _, (on, n_on, _), recs = served
+    by_id = {s["id"]: s for s in recs["spans"]}
+    k1s = [ln for ln in recs["launches"] if ln["kernel"] == "k1"]
+    assert len(k1s) == n_on
+    assert [ln["t_ns"] for ln in k1s] == sorted(ln["t_ns"] for ln in k1s)
+    per_step = {}
+    for ln in k1s:
+        assert by_id[ln["span"]]["name"] in ("model.attention", "model.mlp")
+        top = _ancestor(by_id, ln["span"], ("model.decode_step",
+                                            "model.prefill"))
+        per_step[top["id"]] = per_step.get(top["id"], 0) + 1
+        assert ln["in_bytes"] == ln["out_bytes"] == 4       # f32 reduced
+        if top["name"] == "model.decode_step":
+            assert ln["m"] == SLOTS
+    steps = [s for s in recs["spans"] if s["name"] == "model.decode_step"]
+    assert len(steps) == on.decode_steps
+    for s in steps:
+        assert per_step[s["id"]] == K1_PER_LAYER * cfg.n_layers
+    shapes = [(ln["k"], ln["n"]) for ln in k1s[:K1_PER_LAYER]]
+    d, hd = cfg.d_model, cfg.head_dim
+    assert shapes == [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                      (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d),
+                      (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+
+
+def test_setting_the_attribute_turns_recording_on():
+    cfg = get("qwen3-1.7b").reduced().replace(n_layers=1)
+    params = lm.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    srv = Server(cfg, params, slots=1, cache_len=16, backend="torch",
+                 device="cpu")
+    srv.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new=4))
+    srv.step()                          # the first two tokens, unrecorded
+    srv.spans = SpanRecorder()
+    srv.run_until_drained()
+    names = [s["name"] for s in srv.spans.records()["spans"]]
+    assert names.count("serve.step") == 2 and "serve.admit" not in names
+    assert names.count("model.decode_step") == 2
+
+
+def test_a_raise_closes_the_spans_and_clears_the_handle(monkeypatch):
+    cfg = get("qwen3-1.7b").reduced().replace(n_layers=1)
+    params = lm.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    rec = SpanRecorder()
+    srv = Server(cfg, params, slots=1, cache_len=16, backend="torch",
+                 device="cpu", spans=rec)
+    srv.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new=3))
+
+    def broken(*args, **kw):
+        rec.open("model.decode_step")
+        raise RuntimeError("planted")
+    monkeypatch.setattr(lm, "decode_step", broken)
+    with pytest.raises(RuntimeError, match="planted"):
+        srv.step()
+    assert spans.ACTIVE is None
+    ss = rec.records()["spans"]
+    assert [s["name"] for s in ss][:2] == ["serve.step", "serve.admit"]
+    assert all(s["end_ns"] is not None for s in ss)
+
+
+@pytest.mark.parametrize("name,block", [("mamba2-370m", []),
+                                        ("mixtral-8x22b",
+                                         ["model.attention", "model.mlp"])])
+def test_other_families_name_their_blocks(name, block):
+    """An MoE block's feed-forward half is ``model.mlp``; a Mamba2 layer
+    opens no span."""
+    cfg = get(name).reduced().replace(n_layers=2)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rec = SpanRecorder()
+    sid = rec.open("serve.step")
+    assert spans.ACTIVE is rec
+    toks = torch.arange(1, 7).reshape(1, 6)
+    lm.prefill(params, {"tokens": toks}, cfg, cache_len=12)
+    rec.close(sid)
+    assert spans.ACTIVE is None
+    ss = rec.records()["spans"]
+    assert [s["name"] for s in ss] == ["serve.step", "model.prefill"] \
+        + block * 2
+    assert all(s["attrs"] == {} for s in ss)
+
+
+def test_launch_records_name_the_innermost_open_span():
+    rec = SpanRecorder()
+    top = rec.open("serve.step")
+    rec.launch("k1", 1, 2, 3, 2, 2)
+    sid = rec.open("model.mlp")
+    rec.launch("k1", 4, 5, 6, 2, 4)
+    rec.close(sid)
+    assert spans.ACTIVE is rec
+    rec.close(top)
+    assert spans.ACTIVE is None
+    got = rec.records()
+    assert [(ln["kernel"], ln["span"], ln["m"], ln["k"], ln["n"],
+             ln["in_bytes"], ln["out_bytes"]) for ln in got["launches"]] \
+        == [("k1", top, 1, 2, 3, 2, 2), ("k1", sid, 4, 5, 6, 2, 4)]
+    assert got["launches"][0]["t_ns"] <= got["spans"][sid]["start_ns"] \
+        <= got["launches"][1]["t_ns"] <= got["spans"][sid]["end_ns"]
+    # plain data: editing what records() returned leaves the recorder as is
+    got["spans"][0]["attrs"]["x"] = 1
+    assert rec.records()["spans"][0]["attrs"] == {}
+
+
+def _span(i, parent, name, s, e):
+    return dict(id=i, parent=parent, name=name, start_ns=s, end_ns=e,
+                attrs={})
+
+
+def test_innermost_partition_worked_by_hand():
+    ss = [_span(0, None, "serve.step", 0, 100),
+          _span(1, 0, "serve.decode", 10, 90),
+          _span(2, 1, "model.decode_step", 10, 60),
+          _span(3, 2, "model.attention", 20, 30),
+          _span(4, 2, "model.mlp", 30, 50),
+          _span(5, 1, "serve.wait", 60, 90),
+          _span(6, None, "serve.step", 120, 130),
+          _span(7, 6, "serve.decode", 125, 130)]   # a child at its end
+    idle = [(-5, 15), (25, 35), (40, 70), (95, 125), (128, 140)]
+    got = spans.innermost(ss, idle)
+    want = {
+        None: 5 + 20 + 10,                        # -5..0, 100..120, 130..140
+        "serve.step": 10 + 5 + 5,                 # 0..10, 95..100, 120..125
+        "serve.step/serve.decode/model.decode_step": 5 + 10,
+        "serve.step/serve.decode/model.decode_step/model.attention": 5,
+        "serve.step/serve.decode/model.decode_step/model.mlp": 5 + 10,
+        "serve.step/serve.decode/serve.wait": 10,
+        "serve.step/serve.decode": 2,             # 128..130
+    }
+    assert got == pytest.approx(want)
+    assert sum(got.values()) == pytest.approx(sum(e - s for s, e in idle))
+    # an open span and a span of no length change nothing
+    assert spans.innermost(ss + [_span(8, 3, "serve.splice", 25, 25),
+                                 _span(9, None, "x", 140, None)], idle) \
+        == pytest.approx(want)
+    assert spans.innermost([], [(0, 3)]) == {None: 3}
+
+
+def test_clock_anchors_map_unix_time_onto_the_span_clock():
+    assert spans.unix_to_perf_ns([(100, 1000)], 1500) == 600
+    anchors = [(100, 1000), (2100, 3000)]
+    assert spans.unix_to_perf_ns(anchors, 2000) == 1100
+    rec = SpanRecorder()
+    a = rec.records()["anchors"]
+    assert len(a) == 2 and a[0][0] <= a[1][0]
+    # the two clocks read back to back agree to well under a millisecond
+    p, u = spans.clock_anchor()
+    assert abs(spans.unix_to_perf_ns(a, u) - p) < 5e6
+
+
+def test_wall_clock_reads_perf_counter():
+    t = time.perf_counter()
+    assert t <= WallClock().now <= time.perf_counter()
+    assert WallClock().advance(1e6) <= time.perf_counter()
