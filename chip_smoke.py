@@ -53,6 +53,18 @@ Phases (any failure exits non-zero and prints no result line):
              reference's 2e-5 and bf16 on peaked inputs at one bf16 ulp;
              time the model shapes, on the device and with events, beside
              scaled_dot_product_attention and the bound.
+6b. decode attention — the port's decode attention kernel
+             (kernels/decode_attention.py) against chunked_attention's
+             decode call at the chat cell's step (32 slots of 1,312
+             positions, qwen3-1.7b's 8 KV heads of 128, groups of 2, the
+             live positions of a mid-window step drawn from the chat
+             traffic's lengths) and at zamba2's (head dim 80, g 1),
+             gemma-2b's (256, g 8) and phi4-mini's (g 3) shapes, within one
+             bf16 ulp of the output's scale; the chat step timed on the
+             device and with events, by host µs a call, beside
+             chunked_attention, scaled_dot_product_attention over the whole
+             cache (the library yardstick, never called by the port) and
+             the bound: the live K and V bytes at 3.35 TB/s.
 7. engine  — quickstart part 1 through repro_torch.core on the card: mfadd,
              mfsub, mfmax refused, mfmacc, the modeled Aquabolt-XL headline
              (59.4 FLOP/cycle, 14.9 GFLOP/s, 256 launches); the batched
@@ -209,6 +221,16 @@ K3_MODEL_CASES = [
     ("mixtral-8x22b window", (48, 8192, 8192, 128), True, 4096),
     ("gemma-2b prefill", (8, 2048, 2048, 256), True, 0),
 ]
+#: the decode attention kernel: (name, b, clen, hkv, g, d), the chat
+#: cell's step first (timed), then the head dims and groups of the other
+#: window-free decodes on the card
+DECODE_ATTN_CASES = [("chat", 32, 1312, 8, 2, 128),
+                     ("zamba2-2.7b", 4, 512, 32, 1, 80),
+                     ("gemma-2b", 8, 1024, 1, 8, 256),
+                     ("phi4-mini-3.8b", 8, 1024, 8, 3, 128)]
+#: distinct caches the timed decode attention cycles through, as the 28
+#: layers of a step do: 4 x 172 MB, past the 50 MB L2
+DECODE_ATTN_LAYERS = 4
 #: K2 at the model shapes: the AME max tile in FP16 (cost.max_tile_mfmacc)
 #: and a bf16 pair of 128 MiB operands, past the 50 MB L2
 K2_MODEL_CASES = [((128, 4096), "float16"), ((8192, 8192), "bfloat16")]
@@ -1041,6 +1063,110 @@ def phase_attention(dev):
     return records
 
 
+def chat_positions(b, seed=0):
+    """Live positions of a mid-window step of the chat cell: each slot's
+    prompt log-uniform on [32, 1024] plus a uniform share of an answer
+    log-uniform on [16, 256] (portbench/traffic/chat.json's lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompt = np.exp(rng.uniform(np.log(32), np.log(1024), b))
+    answer = np.exp(rng.uniform(np.log(16), np.log(256), b))
+    return (prompt + rng.uniform(0, 1, b) * answer).astype(int).tolist()
+
+
+def decode_attn_inputs(b, clen, hkv, g, d, positions, gen, dev):
+    """q and a bf16 slot cache as the decode branch hands them over: slot
+    j holds position j up to the slot's own position; past it, stale
+    entries of an earlier, longer request (position j) or -1."""
+    import torch
+    q = torch.randn(b, 1, hkv * g, d, generator=gen, device=dev)
+    k = torch.randn(b, clen, hkv, d, generator=gen, device=dev)
+    v = torch.randn(b, clen, hkv, d, generator=gen, device=dev)
+    pos = torch.as_tensor(positions, dtype=torch.long, device=dev)
+    kpos = torch.arange(clen, device=dev).expand(b, clen).clone()
+    kpos[torch.rand(b, clen, generator=gen, device=dev) < 0.05] = -1
+    kpos[torch.arange(b, device=dev), pos] = pos
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16(), kpos.to(torch.int32),
+            pos)
+
+
+def phase_decode_attention(dev):
+    """The decode attention kernel against chunked_attention's decode
+    call (one bf16 ulp of the output's scale); the chat step timed.
+    Returns records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.launch import hw
+    from repro_torch.models.attention import chunked_attention
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def plain(q, k, v, kpos, pos):
+        return chunked_attention(q, k, v, causal=True, q_offset=pos,
+                                 kv_positions=kpos)
+
+    def sdpa(q, k, v, keep):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=keep, enable_gqa=True)
+
+    records, bad = [], []
+    for name, b, clen, hkv, g, d in DECODE_ATTN_CASES:
+        positions = [min(p, clen - 1) for p in chat_positions(b, b + d)]
+        args = [decode_attn_inputs(b, clen, hkv, g, d, positions, gen, dev)
+                for _ in range(DECODE_ATTN_LAYERS if name == "chat" else 1)]
+        got = kd.decode_attention(*args[0])
+        torch.cuda.synchronize()
+        want = plain(*args[0]).float()
+        err = float((got.float() - want).abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+        ok = err <= ulp and got.shape == want.shape
+        live = sum(min(p + 1, clen) for p in positions)
+        rec = dict(kind=name, b=b, clen=clen, hkv=hkv, g=g, d=d,
+                   live_keys=live, max_abs_err=err, ulp=ulp, ok=ok)
+        line = (f"[decode_attn] {name:15s} (b,clen,hkv,g,d)="
+                f"{(b, clen, hkv, g, d)} bf16, {live} live keys of "
+                f"{b * clen}: max_abs_err={err:.3g} (one bf16 ulp "
+                f"{ulp:.3g}) {'ok' if ok else 'FAIL'}")
+        if name == "chat":
+            # SDPA attends over the whole cache under a boolean mask of
+            # the keys each slot sees, built once outside the timing
+            lib_args = [(q, k, v, ((kpos >= 0) & (kpos <= pos[:, None]))[
+                :, None, None, :]) for q, k, v, kpos, pos in args]
+            lib = sdpa(*lib_args[0]).transpose(1, 2).float()
+            lib_err = float((lib - want).abs().max())
+            rec.update(
+                ms=timed_ms(kd.decode_attention, args, 40),
+                plain_ms=timed_ms(plain, args, 8),
+                library_ms=timed_ms(sdpa, lib_args, 20),
+                device_ms=device_ms(kd.decode_attention, args, 40),
+                library_device_ms=device_ms(sdpa, lib_args, 20),
+                host_us=host_us(kd.decode_attention, args, 40),
+                plain_host_us=host_us(plain, args, 8),
+                library_max_abs_err=lib_err,
+                bound_ms=1e3 * live * hkv * d * 2 * 2 / hw.HBM_BW,
+                bound_by="bytes")
+            line += (f" | device: kernel {rec['device_ms']:.4f} ms, sdpa "
+                     f"{rec['library_device_ms']:.4f} ms | events: kernel "
+                     f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                     f"sdpa {rec['library_ms']:.4f} ms (max_abs_err "
+                     f"{lib_err:.3g} vs plain) | host: kernel "
+                     f"{rec['host_us']:.1f} us, plain "
+                     f"{rec['plain_host_us']:.1f} us a call | bound "
+                     f"{rec['bound_ms']:.4f} ms (bytes: the live K and V) "
+                     f"| {kd.splits(b, hkv, clen)[1]} splits of "
+                     f"{kd.splits(b, hkv, clen)[0]} keys")
+        log(line)
+        records.append(rec)
+        if not ok:
+            bad.append(rec)
+    if bad:
+        raise AssertionError(f"the decode attention kernel disagrees with "
+                             f"chunked_attention: {bad}")
+    return records
+
+
 def _strict_ew(kind, a, b):
     """The numpy strict interpreter's mf<kind> of two FP16 tiles."""
     from repro_torch.core import pep
@@ -1366,12 +1492,25 @@ def fill_lora(params, gen):
         params["stack"]["lora_b"].normal_(0.0, LORA_B_STD, generator=gen)
 
 
+def decode_attention_layers(cfg):
+    """The decode attention kernel's launches a decode step: one per
+    window-free GQA attention layer (qwen3's 28, zamba2's 9 shared-block
+    applications); a sliding window (mixtral) and MLA (deepseek) keep
+    chunked_attention, and a Mamba2 layer has no attention."""
+    if cfg.sliding_window or cfg.mla is not None:
+        return 0
+    if cfg.hybrid is not None:
+        return cfg.n_layers // cfg.hybrid.shared_every
+    return 0 if cfg.ssm is not None else cfg.n_layers
+
+
 def phase_serve(cfg, dev):
     """Serve seeded requests at full width through the kernels; returns
     the serve summary with each kernel's launches on this path."""
     import torch
     from repro_torch.configs import get
     from repro_torch.kernels import ame_gemm as k1
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.models import model as lm
     from repro_torch.serve.loop import Request, Server
@@ -1401,7 +1540,7 @@ def phase_serve(cfg, dev):
         srv.submit(r)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    k1.launches = k4.launches = 0                     # main path starts
+    k1.launches = k4.launches = kd.launches = 0       # main path starts
     k1.launches_by_variant.update(mma=0, fma=0)
     k4.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
@@ -1409,22 +1548,26 @@ def phase_serve(cfg, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
-                "ssd_scan": k4.launches}
+                "ssd_scan": k4.launches,
+                "decode_attention": kd.launches}
     k1_variants = dict(k1.launches_by_variant)
     k4_variants = dict(k4.launches_by_variant)
     tokens = sum(len(r.out_tokens) for r in done)
     forwards = srv.prefills + srv.decode_steps
     want = {"ame_gemm": k1_per_forward(cfg) * forwards,
             "ssd_scan": cfg.n_layers * sum(len(p) > 1 for p in prompts)
-            if scan else 0}
+            if scan else 0,
+            "decode_attention": decode_attention_layers(cfg)
+            * srv.decode_steps}
     log(f"[serve] {len(done)} requests, {tokens} tokens, {srv.prefills} "
         f"prefills (prompts {sorted(len(p) for p in prompts)}) + "
         f"{srv.decode_steps} decode steps in {wall:.3f}s wall "
         f"(synchronised), {tokens / wall:.1f} tok/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    variants = {"ame_gemm": k1_variants, "ssd_scan": k4_variants}
     for name, n in launches.items():
-        log(f"[serve] {name} launches: {n} (expected {want[name]}), by "
-            f"variant {k4_variants if name == 'ssd_scan' else k1_variants}")
+        log(f"[serve] {name} launches: {n} (expected {want[name]})"
+            + (f", by variant {variants[name]}" if name in variants else ""))
     if len(done) != N_REQUESTS:
         raise AssertionError(f"{len(done)} of {N_REQUESTS} requests served")
     if launches != want or launches["ame_gemm"] == 0 \
@@ -1768,9 +1911,11 @@ def phase_offload_serve(cfg, dev, clean_tokens):
     """Full-width qwen3-1.7b through Server with the analytic sidecar and
     the fault plan attached: K1 launches, restarted requests' tokens
     against the clean serve, fault counters, roofline, sidecar host cost
-    and the served step's busy/idle shares.  Returns the K1 launches."""
+    and the served step's busy/idle shares.  Returns the K1 and decode
+    attention launches."""
     import torch
     from repro_torch.kernels import ame_gemm as k1
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.models import model as lm
     from repro_torch.obs import MetricsRegistry
@@ -1798,17 +1943,20 @@ def phase_offload_serve(cfg, dev, clean_tokens):
     for u, p in enumerate(prompts):
         srv.submit(Request(uid=u, prompt=p, max_new=MAX_NEW))
     torch.cuda.synchronize()
-    k1.launches = k4.launches = 0                     # main path starts
+    k1.launches = k4.launches = kd.launches = 0       # main path starts
     k1.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
     done = srv.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
-                "ssd_scan": k4.launches}
+                "ssd_scan": k4.launches,
+                "decode_attention": kd.launches}
     k1_variants = dict(k1.launches_by_variant)
     forwards = srv.prefills + srv.decode_steps
-    want = {"ame_gemm": k1_per_forward(cfg) * forwards, "ssd_scan": 0}
+    want = {"ame_gemm": k1_per_forward(cfg) * forwards, "ssd_scan": 0,
+            "decode_attention": decode_attention_layers(cfg)
+            * srv.decode_steps}
     inj = off.rt.faults
     summ = srv.latency_summary()
     log(f"[offload] {len(done)} completed, {len(srv.failed_requests)} "
@@ -1825,7 +1973,8 @@ def phase_offload_serve(cfg, dev, clean_tokens):
         f"{summ['retries']} failed={summ['failed']}")
     if launches != want or launches["ame_gemm"] == 0 or k1_variants["fma"]:
         raise AssertionError("the offload serve did not go through K1 once "
-                             "per projection on mma")
+                             "per projection on mma and the decode "
+                             "attention once per layer")
     if len(done) + len(srv.failed_requests) != N_REQUESTS:
         raise AssertionError("the offload serve lost requests")
     mismatched = [r.uid for r in done if r.out_tokens != clean_tokens[r.uid]]
@@ -2666,7 +2815,9 @@ def phase_mesh(cfg, dev):
     host paths (distributed_train on 4 gloo ranks, the dry-runs).  The
     warm decode step is timed and profiled sharded and unsharded (the
     serve's ``lm.decode_step``) at the same shape: DTensor's dispatch
-    costs host time.  Returns the launches."""
+    costs host time.  Both decode steps attend with the decode kernel,
+    the sharded one on its DTensor caches' local shards, so the two sides
+    run the same computations.  Returns the launches."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2674,6 +2825,7 @@ def phase_mesh(cfg, dev):
     from repro_torch.configs import SHAPES
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import model as lm
@@ -2728,6 +2880,7 @@ def phase_mesh(cfg, dev):
         nt, ntd = want.argmax(-1), got.argmax(-1)
         toks, dtoks, dlaunch, dfma = [nt], [ntd], 0, 0
         step_wall, ref_wall = [], []
+        attn0 = kd.launches
         for i in range(MESH_DECODE):
             pos = torch.full((b,), t + i, dtype=torch.long, device=dev)
             torch.cuda.synchronize()
@@ -2748,17 +2901,23 @@ def phase_mesh(cfg, dev):
             toks.append(nt)
             dtoks.append(ntd)
         same = all(torch.equal(a, c) for a, c in zip(toks, dtoks))
+        attn = kd.launches - attn0
         warm = slice(2, None)
         sh = 1e3 * sum(step_wall[warm]) / len(step_wall[warm])
         un = 1e3 * sum(ref_wall[warm]) / len(ref_wall[warm])
         log(f"[mesh] {cfg.name} {MESH_DECODE} sharded decode steps: tokens "
             f"equal to the unsharded decode_step's: {same}; ame_gemm "
             f"launches {dlaunch} ({dlaunch // MESH_DECODE} a step, "
-            f"{dfma} on fma); wall "
+            f"{dfma} on fma); decode_attention launches {attn} (expected "
+            f"{2 * cfg.n_layers * MESH_DECODE}: a layer's, sharded and "
+            f"unsharded); wall "
             f"{sh:.2f} ms a step sharded vs {un:.2f} ms unsharded "
             f"(steps 3-{MESH_DECODE}, host wall, synchronised)")
         if not same or dlaunch != per * MESH_DECODE:
             raise AssertionError("the sharded decode steps disagree")
+        if attn != 2 * cfg.n_layers * MESH_DECODE:
+            raise AssertionError("a decode step did not launch the decode "
+                                 "attention kernel once a layer")
         if dfma:
             raise AssertionError("a sharded decode step launched K1 on fma")
         dfn = lambda: df(dparams, rules.distribute(  # noqa: E731
@@ -2862,7 +3021,8 @@ def phase_mesh(cfg, dev):
     finally:
         dist.destroy_process_group()
     _mesh_host_results(_mesh_host_runs())
-    return {"launches": {"ame_gemm": serve_launches, "ssd_scan": 0}}
+    return {"launches": {"ame_gemm": serve_launches, "ssd_scan": 0,
+                         "decode_attention": attn}}
 
 
 def train_summary(smi, k1_records, serves):
@@ -2910,13 +3070,14 @@ def check_bounds(records):
         raise AssertionError(f"device time below the bound: {below}")
 
 
-def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
-                 ops_launches):
+def kernels_line(k1_records, k4_records, k2_records, k3_records,
+                 da_records, serves, ops_launches):
     """K1's entry: one qwen3 decode layer's seven calls at M = SLOTS,
     summed; its ``fma`` entry, the quickstart's one f32 call, the only
     main-path launch of that variant.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
     of the mamba serve, with the variant it took.  K2's: an (8192, 8192)
     bf16 add.  K3's: one qwen3-1.7b layer's causal prefill attention.
+    The decode attention's: one layer of the chat cell's decode step.
     ``launches``: each kernel's count on the paths that run it (the
     serves, the train phase's kernel-backend losses, the VLM's prefill and
     decode, the ops path).  ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
@@ -2939,6 +3100,10 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
     ew = [r for r in k2_records if r["kind"] == "model"
           and r["shape"] == (8192, 8192) and r["op"] == "add"][0]
     at = [r for r in k3_records if r["kind"] == "qwen3-1.7b prefill"][0]
+    da = [r for r in da_records if r["kind"] == "chat"][0]
+    da_path = {model: s["launches"]["decode_attention"]
+               for model, s in serves.items()
+               if "decode_attention" in s.get("launches", {})}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "device_ms", "library_device_ms")
     return {"kernels": [{
@@ -3009,6 +3174,22 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records, serves,
         "work": f"one qwen3-1.7b layer's causal prefill attention, "
                 f"(BH,T,D)=({at['bh']},{at['tq']},{at['d']}), bf16; library "
                 f"scaled_dot_product_attention",
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "no Pallas kernel: the decode call of "
+                    "models/attention.py:chunked_attention (plain jnp in "
+                    "the reference, src/repro/models/attention.py:97-99)",
+        "launches": sum(da_path.values()),
+        "launches_by_path": da_path,
+        "max_abs_err": max(r["max_abs_err"] for r in da_records),
+        **{key: da[key] for key in timed + ("host_us", "plain_host_us")},
+        "work": f"one layer of the chat cell's decode step: "
+                f"(b,clen,hkv,g,d)=({da['b']},{da['clen']},{da['hkv']},"
+                f"{da['g']},{da['d']}), {da['live_keys']} live keys, bf16; "
+                f"library scaled_dot_product_attention over the whole "
+                f"cache",
     }]}
 
 
@@ -3049,6 +3230,7 @@ def phases_on_card(name, smi):
     k4_records = phase_ssd([mamba, zamba])
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
+    da_records = phase_decode_attention(dev)
     phase_engine(dev)
     phase_runtime(dev, name)
     serves = {"quickstart": phase_quickstart(dev)}
@@ -3074,9 +3256,10 @@ def phases_on_card(name, smi):
     phase_small_train(dev)
     serves[f"mesh:{qwen.name}"] = phase_mesh(qwen, dev)
     train_summary(smi, k1_records, serves)
-    check_bounds(k1_records + k4_records + k2_records + k3_records)
-    return k1_records, k4_records, k2_records, k3_records, serves, \
-        ops_launches
+    check_bounds(k1_records + k4_records + k2_records + k3_records
+                 + da_records)
+    return k1_records, k4_records, k2_records, k3_records, da_records, \
+        serves, ops_launches
 
 
 if __name__ == "__main__":

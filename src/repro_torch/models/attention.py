@@ -4,7 +4,11 @@ Port of ``repro.models.attention``.  The
 reference computes this attention in plain jnp outside any Pallas kernel,
 so plain PyTorch is its faithful counterpart: an outer loop over query
 chunks wraps an inner online-softmax loop over KV chunks, so the largest
-live score tensor is (B, q_chunk, H, chunk).
+live score tensor is (B, q_chunk, H, chunk).  One exception: a
+window-free decode over CUDA tensors attends with the port's own kernel
+(:mod:`repro_torch.kernels.decode_attention`), which computes the same
+function in one launch over the cache as it is stored (the sharded step
+on each rank's local shards, where the KV heads divide the model axis).
 
 Caches are updated in place (the reference donates them to its jitted
 decode step, which permits the same).  The reference's sharding
@@ -18,8 +22,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense, dense_init, norm_init, out_constrain,
     rope,
@@ -156,6 +162,42 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, tq, h, dv).to(q.dtype)
 
 
+def takes_decode_kernel(*tensors) -> bool:
+    """Whether a window-free decode over these tensors runs the port's
+    decode kernel (:mod:`repro_torch.kernels.decode_attention`): plain
+    CUDA tensors.  A CPU tensor keeps :func:`chunked_attention`.  The
+    sharded step asks with its DTensors' local shards."""
+    return all(t.is_cuda and not isinstance(t, DTensor) for t in tensors)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _decode_local(q, k, v, kv_positions, q_positions):
+    """:func:`decode_attention` of DTensors on each rank's local shards.
+    The caches shard slots on 'batch' and KV heads on 'model' (the KV
+    heads divide the model axis), so each rank holds whole GQA groups:
+    q takes the caches' shards of dims 0 and 2, the positions their shard
+    of dim 0, and the output keeps q's."""
+    mesh = k.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    heads = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+             for p in k.placements]
+    rows = [p if p.is_shard(0) else Replicate() for p in heads]
+
+    def place(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+    fn = local_map(lambda qq, *a: decode_attention(qq.contiguous(), *a),
+                   out_placements=heads,
+                   in_placements=(heads, heads, heads, rows, rows),
+                   device_mesh=mesh)
+    return fn(place(q, heads), place(k, heads), place(v, heads),
+              place(kv_positions, rows), place(q_positions, rows))
+
+
 # ---------------------------------------------------------------------------
 # standard GQA attention module
 # ---------------------------------------------------------------------------
@@ -241,7 +283,6 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
         put_slots(cache["k"], slot, k[:, 0])
         put_slots(cache["v"], slot, v[:, 0])
         put_slots(cache["pos"], slot, pos.to(torch.int32))
-        kv_valid = torch.clamp(pos + 1, max=clen)
         if heads_shardable:
             kk = constrain(cache["k"], "batch", None, "model", None)
             vv = constrain(cache["v"], "batch", None, "model", None)
@@ -251,10 +292,16 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
             q = constrain(q, "batch", None, None, "model")
             kk = constrain(cache["k"], "batch", None, None, "model")
             vv = constrain(cache["v"], "batch", None, None, "model")
-        out = chunked_attention(
-            q, kk, vv, causal=True, window=window,
-            chunk=chunk, q_offset=pos, kv_positions=cache["pos"],
-            kv_valid=kv_valid if window else None)
+        if window == 0 and heads_shardable \
+                and takes_decode_kernel(*map(_local, (q, kk, vv))):
+            # one launch over the bf16 cache as it is stored, live keys only
+            out = (_decode_local if isinstance(kk, DTensor)
+                   else decode_attention)(q, kk, vv, cache["pos"], pos)
+        else:
+            out = chunked_attention(
+                q, kk, vv, causal=True, window=window,
+                chunk=chunk, q_offset=pos, kv_positions=cache["pos"],
+                kv_valid=torch.clamp(pos + 1, max=clen) if window else None)
     out = constrain(out, "batch", None, "model", None)
     y = dense(p["wo"], out.reshape(b, t, h * hd), backend)
     return out_constrain(y, cfg.policy), cache

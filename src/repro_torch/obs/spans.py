@@ -23,11 +23,13 @@ A :class:`SpanRecorder` given to ``Server(spans=...)`` (or set as
   block; a Mamba2 layer has no span of its own.
 
 * **launch records** of K1 (``ame_gemm``: m, k, n, in_bytes,
-  out_bytes), each with the id of the span open at the launch and a
-  stamp.  A record belongs to its span, and a span is the unit that
-  runs: code that replays captured work records the launches once under
-  the capturing span and marks each replaying span with an attribute
-  naming it, so the records never assume that Python sees every launch.
+  out_bytes) and of the decode attention (``decode_attention``: slots b,
+  KV heads hkv, group size g, head dim d, cache length clen, in_bytes),
+  each with the id of the span open at the launch and a stamp.  A
+  record belongs to its span, and a span is the unit that runs: code
+  that replays captured work records the launches once under the
+  capturing span and marks each replaying span with an attribute naming
+  it, so the records never assume that Python sees every launch.
 
 * **clock anchors** — ``(perf_counter_ns, time_ns)`` pairs read back to
   back when the recorder is made and at each :meth:`SpanRecorder.records`
@@ -49,7 +51,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 ACTIVE: Optional["SpanRecorder"] = None
 #: the fields of each kernel's launch record, in the order ``launch``
 #: takes them
-LAUNCH_FIELDS = {"k1": ("m", "k", "n", "in_bytes", "out_bytes")}
+LAUNCH_FIELDS = {"k1": ("m", "k", "n", "in_bytes", "out_bytes"),
+                 "decode_attention": ("b", "hkv", "g", "d", "clen",
+                                      "in_bytes")}
 
 _now = time.perf_counter_ns
 

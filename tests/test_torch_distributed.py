@@ -290,40 +290,69 @@ def _port_rank(rank, world, port, work):
             res["train"][name] = {"losses": losses, "grad_norms": norms,
                                   "unsharded": ulosses, "seconds": secs}
 
-    # the sharded serve steps against the unsharded ones
+    # the sharded serve steps against the unsharded ones; "routed" is the
+    # kernel backend with the decode attention kernel's route taken, a
+    # stand-in for the kernel (chunked_attention on what it is handed)
+    # recording the shards it gets
+    import contextlib
+    from unittest import mock
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import attention
+    handed = []
+
+    def stand_in(q, k, v, kpos, qpos):
+        handed.append({"dtensor": any(isinstance(t, DTensor)
+                                      for t in (q, k, v, kpos, qpos)),
+                       "q": list(q.shape), "k": list(k.shape),
+                       "kpos": list(kpos.shape), "qpos": list(qpos.shape)})
+        return attention.chunked_attention(q, k, v, causal=True,
+                                           q_offset=qpos, kv_positions=kpos)
+
+    def serve_steps(cfg, params, tok, backend):
+        pf, _, psp = steps.make_prefill_step(
+            cfg, mesh, ShapeSpec("p", 16, 4, "prefill"), backend=backend)
+        df, _, dsp = steps.make_decode_step(
+            cfg, mesh, ShapeSpec("d", 16, 4, "decode"), backend=backend)
+        dp = rules.distribute(params, psp[0], mesh)
+        with torch.no_grad():
+            ref, rc = lm.prefill(params, {"tokens": tok}, cfg,
+                                 cache_len=16, backend=backend)
+        got, cc = pf(dp, rules.distribute({"tokens": tok}, psp[1], mesh))
+        got = full(got)
+        errs, same = [float((got - ref).abs().max())], True
+        for i in range(4):
+            nt, ntd = ref.argmax(-1), got.argmax(-1)
+            same &= bool(torch.equal(nt, ntd))
+            pos = torch.full((4,), 12 + i, dtype=torch.long)
+            with torch.no_grad():
+                ref, rc = lm.decode_step(params, nt[:, None], pos, rc,
+                                         cfg, backend=backend)
+            got, cc = df(dp, rules.distribute(ntd[:, None], dsp[1], mesh),
+                         rules.distribute(pos, dsp[2], mesh),
+                         cc)
+            got = full(got)
+            errs.append(float((got - ref).abs().max()))
+        same &= bool(torch.equal(ref.argmax(-1), got.argmax(-1)))
+        return {"errs": errs, "tokens": same}
+
     for tp in ("allreduce", "allgather"):
         cfg = config("repro_torch", "qwen3-1.7b", tp, 1)
         params = convert.params_from_jax(
             unflat(dict(np.load(work / "qwen3-ar-1.init.npz"))), cfg, "cpu")
         tok = torch.randint(0, cfg.vocab_size, (4, 12),
                             generator=torch.Generator().manual_seed(3))
-        for backend in ("torch", "kernel"):
-            pf, _, psp = steps.make_prefill_step(
-                cfg, mesh, ShapeSpec("p", 16, 4, "prefill"), backend=backend)
-            df, _, dsp = steps.make_decode_step(
-                cfg, mesh, ShapeSpec("d", 16, 4, "decode"), backend=backend)
-            dp = rules.distribute(params, psp[0], mesh)
-            with torch.no_grad():
-                ref, rc = lm.prefill(params, {"tokens": tok}, cfg,
-                                     cache_len=16, backend=backend)
-            got, cc = pf(dp, rules.distribute({"tokens": tok}, psp[1], mesh))
-            got = full(got)
-            errs, same = [float((got - ref).abs().max())], True
-            for i in range(4):
-                nt, ntd = ref.argmax(-1), got.argmax(-1)
-                same &= bool(torch.equal(nt, ntd))
-                pos = torch.full((4,), 12 + i, dtype=torch.long)
-                with torch.no_grad():
-                    ref, rc = lm.decode_step(params, nt[:, None], pos, rc,
-                                             cfg, backend=backend)
-                got, cc = df(dp, rules.distribute(ntd[:, None], dsp[1], mesh),
-                             rules.distribute(pos, dsp[2], mesh),
-                             cc)
-                got = full(got)
-                errs.append(float((got - ref).abs().max()))
-            same &= bool(torch.equal(ref.argmax(-1), got.argmax(-1)))
-            res["serve"][f"{tp}-{backend}"] = {"errs": errs, "tokens": same}
+        for route in ("torch", "kernel", "routed"):
+            backend = "torch" if route == "torch" else "kernel"
+            del handed[:]
+            with contextlib.ExitStack() as patches:
+                if route == "routed":
+                    patches.enter_context(mock.patch.object(
+                        attention, "takes_decode_kernel", lambda *t: True))
+                    patches.enter_context(mock.patch.object(
+                        attention, "decode_attention", stand_in))
+                res["serve"][f"{tp}-{route}"] = {
+                    **serve_steps(cfg, params, tok, backend),
+                    "handed": list(handed)}
 
     # the MLP's collectives per dataflow (one forward, no gradient)
     for tp in ("allreduce", "allgather"):
@@ -496,14 +525,40 @@ def test_sharded_train_step_matches_the_unsharded_step(worlds, name):
 
 
 @pytest.mark.parametrize("case", ["allreduce-torch", "allreduce-kernel",
-                                  "allgather-torch", "allgather-kernel"])
+                                  "allgather-torch", "allgather-kernel",
+                                  "allreduce-routed", "allgather-routed"])
 def test_sharded_serve_steps_match_the_unsharded_ones(worlds, case):
     """Prefill and 4 decode steps on the mesh (the kernel backend runs
-    K1's plain version on each rank's local shards): logits within 1e-5
-    and the same tokens."""
+    K1's plain version on each rank's local shards; the routed cases take
+    the decode attention kernel's route, a stand-in attending): logits
+    within 1e-5 and the same tokens."""
     r = worlds[2]["serve"][case]
     assert max(r["errs"]) <= 1e-5, r["errs"]
     assert r["tokens"]
+
+
+@pytest.mark.parametrize("tp", ["allreduce", "allgather"])
+def test_sharded_decode_hands_the_kernel_local_shards(worlds, tp):
+    """Where the KV heads divide the model axis, the sharded decode hands
+    the decode attention kernel each rank's local shards as plain
+    tensors: half the 4 slots (batch on 'data') and half the 2 KV heads
+    with their whole groups of query heads (heads on 'model'), once a
+    layer a step, as the unsharded decode hands it the whole; the plain
+    routes never reach it."""
+    cfg = config("repro_torch", "qwen3-1.7b", tp, 1)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    serve = worlds[2]["serve"]
+    assert serve[f"{tp}-torch"]["handed"] == []
+    assert serve[f"{tp}-kernel"]["handed"] == []
+    handed = serve[f"{tp}-routed"]["handed"]
+    assert not any(c["dtensor"] for c in handed)
+    whole = {"q": [4, 1, h, d], "k": [4, 16, hkv, d], "kpos": [4, 16],
+             "qpos": [4]}
+    local = {"q": [2, 1, h // 2, d], "k": [2, 16, hkv // 2, d],
+             "kpos": [2, 16], "qpos": [2]}
+    shapes = [{key: c[key] for key in whole} for c in handed]
+    assert shapes.count(whole) == shapes.count(local) == 4 * cfg.n_layers
+    assert len(shapes) == 8 * cfg.n_layers
 
 
 @pytest.mark.parametrize("backend", ["torch", "kernel"])

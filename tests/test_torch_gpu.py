@@ -649,6 +649,193 @@ def test_attention_smem_claim_matches_the_source_and_fits(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the decode attention kernel against chunked_attention's decode call
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(b, clen, hkv, g, d, dtype, device, positions, seed=0):
+    """q and a slot cache as the decode branch hands them over, after the
+    new key was written: slot j holds position j up to the slot's own
+    position, with some slots unwritten (-1); past it, stale entries of an
+    earlier, longer request (position j, random K and V) or -1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, 1, hkv * g, d, generator=gen, device=device)
+    k = torch.randn(b, clen, hkv, d, generator=gen, device=device)
+    v = torch.randn(b, clen, hkv, d, generator=gen, device=device)
+    pos = torch.as_tensor(positions, dtype=torch.long, device=device)
+    kpos = torch.arange(clen, device=device).expand(b, clen).clone()
+    kpos[torch.rand(b, clen, generator=gen, device=device) < 0.05] = -1
+    kpos[torch.arange(b, device=device), pos] = pos
+    return (q.to(dtype), k.to(dtype), v.to(dtype), kpos.to(torch.int32),
+            pos)
+
+
+def _ragged(b, clen, seed=0):
+    """Positions 0 and clen - 1 and ragged ones between."""
+    gen = torch.Generator().manual_seed(seed)
+    mid = torch.randint(1, clen - 1, (b - 2,), generator=gen).tolist()
+    return [0, clen - 1] + mid
+
+
+def bf16_ulp(x: torch.Tensor) -> float:
+    """One bf16 ulp at the scale of ``x``'s largest magnitude."""
+    import math
+    return 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+@pytest.mark.parametrize("b,clen,hkv,g,d,dtype", [
+    (32, 1312, 8, 2, 128, torch.bfloat16),     # the chat cell's decode
+    (4, 600, 32, 1, 80, torch.bfloat16),       # zamba2's shared block
+    (8, 1000, 1, 8, 256, torch.bfloat16),      # gemma-2b (MQA)
+    (8, 700, 8, 3, 128, torch.bfloat16),       # phi4-mini-3.8b
+    (4, 300, 8, 8, 128, torch.bfloat16),       # command-r, internvl2
+    (3, 90, 2, 2, 32, torch.bfloat16),         # the reduced configurations
+    (2, 500, 1, 16, 64, torch.bfloat16),       # a group of 16: two chunks
+    (6, 257, 4, 1, 64, torch.float32),
+    (5, 333, 2, 4, 128, torch.float32),
+    (3, 90, 2, 2, 32, torch.float32),
+    (4, 1000, 1, 8, 256, torch.float32),
+], ids=str)
+def test_decode_attention_matches_chunked_attention(cuda, b, clen, hkv, g,
+                                                    d, dtype):
+    """The kernel against chunked_attention called as the decode branch
+    calls it: bf16 within one bf16 ulp of the output's scale, f32 within
+    the reference's f32 tolerance (only the order of the sums differs)."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.models.attention import chunked_attention
+    q, k, v, kpos, pos = _decode_case(b, clen, hkv, g, d, dtype, cuda,
+                                      _ragged(b, clen, seed=d + g))
+    before = kd.launches
+    got = kd.decode_attention(q, k, v, kpos, pos)
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1
+    want = chunked_attention(q, k, v, causal=True, q_offset=pos,
+                             kv_positions=kpos)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.bfloat16:
+        ulp = bf16_ulp(want.float())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= ulp, (err, ulp)
+    else:
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    # the same launch again gives the same bits: the arrival counts were
+    # left at zero, and no sum depends on the order the blocks ran in
+    assert torch.equal(kd.decode_attention(q, k, v, kpos, pos), got)
+
+
+def test_decode_attention_reads_no_key_past_the_slot(cuda):
+    """Keys past a slot's position are never read: NaN there (which any
+    read would spread) leaves the output finite and unchanged."""
+    from repro_torch.kernels import decode_attention as kd
+    q, k, v, kpos, pos = _decode_case(8, 1312, 8, 2, 128, torch.bfloat16,
+                                      cuda, _ragged(8, 1312, seed=5))
+    want = kd.decode_attention(q, k, v, kpos, pos)
+    past = torch.arange(1312, device=cuda)[None, :] > pos[:, None]
+    k[past], v[past] = float("nan"), float("nan")
+    got = kd.decode_attention(q, k, v, kpos, pos)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_chat_decode_step_kernel_against_chunked_attention(cuda, compute,
+                                                           monkeypatch):
+    """One decode step of qwen3-1.7b at published widths (4 of its 28
+    layers) over the chat cell's 32 slots of 1,312 positions at ragged
+    positions: the kernel's logits against the same step with the decode
+    branch sent to chunked_attention (f32 within SERVE_F32_LOGITS_TOL of
+    chip_smoke.py, with the same greedy tokens; bf16 within its qwen3
+    serve limit of 0.25); one kernel launch a layer."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.models import attention
+    from repro_torch.models import model as lm
+    cfg = get("qwen3-1.7b").replace(n_layers=4).with_policy(
+        compute_dtype=compute, param_dtype=compute)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.compute_params(lm.init(cfg, gen, device=cuda), cfg)
+    b, clen = 32, 1312
+    pos = torch.as_tensor(_ragged(b, clen, seed=1), device=cuda)
+    caches = lm.make_caches(cfg, b, clen, cuda)
+    c = caches["dense_stack"]
+    c["k"].normal_(generator=gen)
+    c["v"].normal_(generator=gen)
+    j = torch.arange(clen, device=cuda)
+    c["pos"][:] = torch.where(j[None, :] < pos[:, None], j, -1).to(
+        torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), device=cuda,
+                         generator=gen)
+    before = kd.launches
+    with torch.no_grad():
+        got, _ = lm.decode_step(params, toks, pos, {"dense_stack": {
+            n: t.clone() for n, t in c.items()}}, cfg, backend="kernel")
+        assert kd.launches - before == cfg.n_layers
+        monkeypatch.setattr(attention, "takes_decode_kernel",
+                            lambda *t: False)
+        want, _ = lm.decode_step(params, toks, pos, caches, cfg,
+                                 backend="kernel")
+    assert kd.launches - before == cfg.n_layers
+    if compute == "float32":
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= 0.25
+
+
+def test_decode_attention_launch_counter_counts_kernel_launches_only(cuda):
+    """A CUDA decode launches the kernel once a layer; a rolling cache
+    (mixtral's sliding window) keeps chunked_attention and launches none."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.models import model as lm
+    for name, per_step in (("qwen3-1.7b", 4), ("mixtral-8x22b", 0),
+                           ("gemma-2b", 4)):
+        cfg = get(name).reduced()
+        params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda)
+        with torch.no_grad():
+            lg, caches = lm.prefill(params, {"tokens": toks}, cfg, 24)
+            before = kd.launches
+            pos = torch.full((2,), 20, device=cuda)
+            lm.decode_step(params, lg.argmax(-1)[:, None], pos, caches, cfg)
+        assert kd.launches - before == per_step, name
+
+
+def test_decode_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import decode_attention as kd
+    q, k, v, kpos, pos = _decode_case(2, 64, 2, 2, 64, torch.bfloat16, cuda,
+                                      [10, 63])
+    before = kd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        kd.decode_attention(*_decode_case(2, 64, 2, 2, 96, torch.bfloat16,
+                                          cuda, [10, 63]))
+    with pytest.raises(TypeError):
+        kd.decode_attention(q, k.float(), v, kpos, pos)
+    with pytest.raises(TypeError):
+        kd.decode_attention(q.half(), k.half(), v.half(), kpos, pos)
+    with pytest.raises(ValueError, match="int32"):
+        kd.decode_attention(q, k, v, kpos.long(), pos)
+    with pytest.raises(ValueError, match="int32"):
+        kd.decode_attention(q, k, v, kpos, pos.float())
+    with pytest.raises(ValueError, match=r"\(B,1,H,D\)"):
+        kd.decode_attention(q.expand(2, 3, 4, 64), k, v, kpos, pos)
+    with pytest.raises(ValueError, match="groups"):
+        kd.decode_attention(q[:, :, :3].contiguous(), k, v, kpos, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v, kpos, pos)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+        kd.decode_attention(flat[1:].view(q.shape), k, v, kpos, pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.decode_attention(q, k, v, kpos, pos.cpu())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kd.decode_attention(q.float().requires_grad_(), k.float(), v.float(),
+                            kpos, pos)
+    assert kd.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the PIM runtime: numerics on the card, bit for bit with the CPU
 # ---------------------------------------------------------------------------
 
@@ -992,13 +1179,20 @@ torch.cuda.synchronize()
 assert k1.launches == 7 * cfg.n_layers, k1.launches
 assert isinstance(got, DTensor) and torch.equal(got.full_tensor(), want)
 nt = want.argmax(-1)
+# both steps attend with the decode kernel, the sharded one on its DTensor
+# caches' local shards: one launch a layer each
+from repro_torch.kernels import decode_attention as kd
 for i in range(6):
     pos = torch.full((2,), 16 + i, dtype=torch.long, device=dev)
+    before = kd.launches
     with torch.no_grad():
         want, caches = lm.decode_step(params, nt[:, None], pos, caches, cfg,
                                       backend="kernel")
+    assert kd.launches - before == cfg.n_layers, kd.launches - before
     got, dc = df(dp, rules.distribute(nt[:, None], dsp[1], mesh),
                  rules.distribute(pos, dsp[2], mesh), dc)
+    torch.cuda.synchronize()
+    assert kd.launches - before == 2 * cfg.n_layers, kd.launches - before
     assert torch.equal(got.full_tensor(), want), i
     nt = want.argmax(-1)
 dist.destroy_process_group()
@@ -1010,7 +1204,9 @@ def test_sharded_serve_on_a_one_card_mesh_equals_the_unsharded(cuda):
     """A 1-rank nccl world and a 1x1 mesh (its own process: a process
     group is global to its process): the sharded prefill launches K1 once
     per projection, and its logits and 6 decode steps' are ``torch.equal``
-    to the unsharded serve's (the same kernels at the same shapes)."""
+    to the unsharded serve's (the same kernels at the same shapes; both
+    decodes launch the decode attention kernel once a layer, the sharded
+    one on its caches' local shards)."""
     import os
     import subprocess
     import sys

@@ -8,6 +8,8 @@ the CPU the kernel backend takes K1's plain version, so ``ops.gemm`` is
 replaced by the plain product followed by the record that the K1
 wrapper appends after a launch; the card runs the wrapper itself and
 holds its records to ``ame_gemm.launches`` (``tests/test_torch_gpu.py``).
+The decode attention kernel's records are held on the card here
+(``gpu``-marked: one a layer under each decode step's attention spans).
 """
 import time
 
@@ -260,6 +262,65 @@ def test_launch_records_name_the_innermost_open_span():
     # plain data: editing what records() returned leaves the recorder as is
     got["spans"][0]["attrs"]["x"] = 1
     assert rec.records()["spans"][0]["attrs"] == {}
+
+
+def test_decode_attention_records_carry_their_fields():
+    """The decode attention kernel's record names its shape: slots, KV
+    heads, group size, head dim, cache length and element bytes."""
+    rec = SpanRecorder()
+    top = rec.open("serve.step")
+    sid = rec.open("model.attention")
+    rec.launch("decode_attention", 32, 8, 2, 128, 1312, 2)
+    rec.close(top)
+    (ln,) = rec.records()["launches"]
+    assert ln == dict(kernel="decode_attention", span=sid, t_ns=ln["t_ns"],
+                      b=32, hkv=8, g=2, d=128, clen=1312, in_bytes=2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card, not here)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_card_decode_records_one_decode_attention_launch_a_layer(cuda):
+    """A reduced bf16 qwen3 served on the card under a recorder: every
+    ``model.decode_step`` holds one decode attention record a layer, each
+    under its layer's ``model.attention`` span and naming the slots and the
+    cache; a prefill holds none; the records equal the rise in the
+    kernel's ``launches``."""
+    from repro_torch.kernels import decode_attention as kd
+    cfg = get("qwen3-1.7b").reduced().with_policy(compute_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    srv = Server(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                 backend="kernel", device=cuda, spans=SpanRecorder())
+    for req in _requests(cfg.vocab_size):
+        srv.submit(req)
+    before = kd.launches
+    srv.run_until_drained()
+    recs = srv.spans.records()
+    by_id = {s["id"]: s for s in recs["spans"]}
+    mine = [ln for ln in recs["launches"]
+            if ln["kernel"] == "decode_attention"]
+    assert len(mine) == kd.launches - before \
+        == cfg.n_layers * srv.decode_steps > 0
+    per = {}
+    for ln in mine:
+        span = by_id[ln["span"]]
+        assert span["name"] == "model.attention"
+        top = by_id[span["parent"]]
+        assert top["name"] == "model.decode_step"
+        per[top["id"]] = per.get(top["id"], 0) + 1
+        assert (ln["b"], ln["hkv"], ln["g"], ln["d"], ln["clen"],
+                ln["in_bytes"]) == (SLOTS, cfg.n_kv_heads,
+                                    cfg.n_heads // cfg.n_kv_heads,
+                                    cfg.head_dim_, CACHE_LEN, 2)
+    steps = [s for s in recs["spans"] if s["name"] == "model.decode_step"]
+    assert len(steps) == srv.decode_steps
+    assert all(per.get(s["id"]) == cfg.n_layers for s in steps)
 
 
 def _span(i, parent, name, s, e):

@@ -39,7 +39,8 @@ Prints one JSON line of readings:
 * ``tracer_decode_p50_ms``: the Tracer's synchronised decode span, the
   yardstick with the recorder on and off; ``per_step``: spans and launch
   records a ``serve.step``;
-* ``metrics``: the harness's per-layer readings of the same run;
+* ``metrics``: the harness's per-layer readings of the same run, and
+  ``breakdown``: its busy time, top device ops and idle gaps;
   ``micro_ns``: the recorder's own cost per span and per launch record.
 """
 import argparse
@@ -278,6 +279,7 @@ def main(argv) -> int:
             "card": bench._card(), "correct": result["correct"],
             "metrics": {k: v["value"] for k, v in result["metrics"].items()},
             "tracer_decode_p50_ms": 1e3 * statistics.median(dec),
+            "breakdown": result.get("breakdown"),
             "micro_ns": micro_ns()}
     if args.spans:
         recs = seen["rec"].records()
