@@ -24,6 +24,21 @@ class MoEConfig:
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
     sharding: str = "ep"            # "ep": experts on model axis; "tp": inside-expert
+    # DeepSeek-V3's routing (``noaux_tc``), taken when ``scoring`` is
+    # "sigmoid": sigmoid scores in f32, a correction bias that picks the
+    # experts but not their weights, the ``topk_group`` best of ``n_group``
+    # groups, the top-k weights normalised and times ``routed_scale``, and
+    # no token dropped (``capacity_factor`` unused).  The defaults are the
+    # Switch routing above, the reference's.
+    scoring: str = "softmax"        # softmax|sigmoid
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    # the routed experts held here, ``held`` of them from ``held_from``
+    # (expert parallelism's share; 0: all); the router scores all
+    # ``num_experts`` and the layer adds its own experts' part alone
+    held: int = 0
+    held_from: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +48,16 @@ class MLAConfig:                    # DeepSeek-V3 multi-head latent attention
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # YaRN on the rope dims (DeepSeek-V3: factor 40 over 4,096 original
+    # positions); factor 1 is plain RoPE.  The softmax scale takes m^2,
+    # m = 0.1 * mscale_all_dim * ln(factor) + 1.  The published config's
+    # ``mscale`` equals ``mscale_all_dim``, so cos and sin keep a factor
+    # of 1, and the port has no field for it
+    yarn_factor: float = 1.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale_all_dim: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

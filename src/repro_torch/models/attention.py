@@ -18,13 +18,15 @@ without a mesh.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense, dense_init, norm_init, out_constrain,
@@ -342,6 +344,35 @@ def mla_make_cache(cfg: ArchConfig, batch: int, length: int, dtype, device,
                               dtype=dtype, device=device)}
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor m: 0.1 * mscale * ln(factor) + 1."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_freq(m: MLAConfig, theta: float, device) -> Optional[torch.Tensor]:
+    """The rope dims' frequencies under YaRN (DeepSeek-V3's
+    ``precompute_freqs_cis``), (qk_rope_dim / 2,) f32 on ``device``: the
+    dims that turn fewer than ``beta_slow`` times over the original
+    context are interpolated (divided by the factor), those that turn more
+    than ``beta_fast`` times kept, with a linear ramp between.  None
+    without YaRN (``yarn_factor`` 1: plain RoPE)."""
+    if m.yarn_factor <= 1:
+        return None
+    d = m.qk_rope_dim
+    freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
+
+    def dim_of(turns):
+        return d * math.log(m.yarn_original_len / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim_of(m.yarn_beta_fast)), 0)
+    high = min(math.ceil(dim_of(m.yarn_beta_slow)), d - 1)
+    ramp = torch.clamp((torch.arange(d // 2, dtype=torch.float32) - low)
+                       / (high - low if high != low else 0.001), 0, 1)
+    keep = 1 - ramp
+    return (freq / m.yarn_factor * (1 - keep) + freq * keep).to(device)
+
+
 def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
               backend: Backend = TORCH, chunk: int = 1024
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -363,10 +394,11 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
                                    cfg.norm_eps), backend)
     q = q.reshape(b, t, h, nd + rd)
     qn, qr = q[..., :nd], q[..., nd:]
-    qr = rope(qr, positions, cfg.rope_theta)
+    freq = yarn_freq(m, cfg.rope_theta, x.device)
+    qr = rope(qr, positions, cfg.rope_theta, freq)
     ckv = apply_norm(p["kvnorm"], dense(p["wdkv"], x, backend), cfg.norm_eps)
     kr = rope(dense(p["wkr"], x, backend)[:, :, None, :], positions,
-              cfg.rope_theta)[:, :, 0]                        # shared head
+              cfg.rope_theta, freq)[:, :, 0]                  # shared head
 
     pos = positions[:, 0] if positions.dim() > 1 else positions  # (B,)
     if cache is not None and t == 1:
@@ -388,6 +420,7 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     kk = constrain(kk, "batch", None, None, None)
     ckv_all = constrain(ckv_all, "batch", None, None)
     scale_fix = ((nd + rd) ** -0.5) / ((m.kv_lora_rank + rd) ** -0.5)
+    scale_fix *= yarn_mscale(m.yarn_factor, m.yarn_mscale_all_dim) ** 2
     out = chunked_attention(qq * scale_fix, kk, ckv_all[:, :, None, :],
                             causal=True, chunk=chunk, q_offset=pos)
     wuv = p["wuv"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, vd)

@@ -184,13 +184,17 @@ def apply_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # -- rotary ------------------------------------------------------------------
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (..., T, H, D) rotated by position.  positions (..., T)."""
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         freq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., T, H, D) rotated by position.  positions (..., T).
+    ``freq`` (D/2,) f32 replaces ``theta``'s frequencies (YaRN's)."""
     d = x.shape[-1]
     half = d // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    if freq is None:
+        exps = -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half
+        freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                      device=x.device), exps)
     ang = positions[..., None].float() * freq                 # (..., T, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -20,7 +20,12 @@ A :class:`SpanRecorder` given to ``Server(spans=...)`` (or set as
         serve.retire                 one per finished request
 
   ``model.mlp`` is a block's feed-forward half, an MoE's in an MoE
-  block; a Mamba2 layer has no span of its own.
+  block; a Mamba2 layer has no span of its own.  Under the sigmoid
+  routing (``models/moe.py:moe_sigmoid``) ``model.mlp`` holds
+  ``model.experts``, the held experts' products, with two counters kept
+  as device tensors until :meth:`SpanRecorder.records`: ``routed``, the
+  (live row, choice) pairs that landed on a held expert, and
+  ``held_reached``, the held experts with at least one.
 
 * **launch records** of K1 (``ame_gemm``: m, k, n, in_bytes,
   out_bytes) and of the decode attention (``decode_attention``: slots b,
@@ -73,6 +78,9 @@ class SpanRecorder:
         self._launches: List[tuple] = []
         self._open: List[int] = []
         self.anchors: List[Tuple[int, int]] = [clock_anchor()]
+        #: during a decode step, the server's live slots as a device bool
+        #: (slots,) tensor, for counters that count live rows alone
+        self.live = None
 
     def open(self, name: str, **attrs) -> int:
         """Open span ``name`` inside the innermost open one; returns its id.
@@ -116,11 +124,13 @@ class SpanRecorder:
     def records(self) -> Dict:
         """Everything recorded, as plain data: ``spans`` and ``launches``
         (dicts, in the order they opened or ran) and ``anchors``, this
-        call's pair appended.  A span still open has ``end_ns`` None."""
+        call's pair appended.  A span still open has ``end_ns`` None.
+        Counters kept as device tensors are read here, as numbers."""
         self.anchors.append(clock_anchor())
         return {
             "spans": [dict(id=i, parent=p, name=n, start_ns=s, end_ns=e,
-                           attrs=dict(a))
+                           attrs={k: v.tolist() if hasattr(v, "tolist")
+                                  else v for k, v in a.items()})
                       for i, p, n, s, e, a in self._spans],
             "launches": [dict(kernel=k, span=sid, t_ns=t,
                               **dict(zip(LAUNCH_FIELDS[k], f)))

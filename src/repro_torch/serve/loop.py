@@ -343,6 +343,9 @@ class Server:
         if rec is not None:
             sid = rec.open("serve.decode",
                            positions=[int(self.pos[i]) for i in live])
+            mask = torch.zeros(self.slots, dtype=torch.bool)
+            mask[live] = True
+            rec.live = mask.to(self.device)
         toks = np.zeros((self.slots, 1), np.int64)
         for i in live:
             toks[i, 0] = self.active[i].out_tokens[-1]
@@ -350,6 +353,8 @@ class Server:
             self.params, torch.from_numpy(toks).to(self.device),
             torch.from_numpy(self.pos.astype(np.int64)).to(self.device),
             self.caches, self.cfg, backend=self.backend)
+        if rec is not None:
+            rec.live = None
         self.decode_steps += 1
         rec_off = None
         if self.pim_offload is not None:

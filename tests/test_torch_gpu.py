@@ -1268,3 +1268,46 @@ def test_span_recorder_records_every_k1_launch_on_the_card(cuda):
             if s["name"] in ("model.decode_step", "model.prefill")]
     assert len(tops) == srv.decode_steps + srv.prefills
     assert all(per[s["id"]] == 7 * cfg.n_layers for s in tops)
+
+
+def test_deepseek_v3_at_published_widths_serves_within_the_cell_limits(cuda):
+    """The benchmark's DeepSeek-V3 configuration at its published widths,
+    cut to its 3 dense layers and 1 MoE layer (8 of 256 experts held):
+    four requests prefill and decode through the latent cache on the
+    kernel backend, and every served token's gap to the plain reference
+    (``portbench/reference/mla_moe.py``, f32) stays within the limits of
+    the cell ``deepseek-v3.chat-64``; every expert product ran on K1."""
+    import json
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from portbench import check, port, weights
+    cfg = json.loads((root / "portbench" / "configs" / "deepseek-v3.json")
+                     .read_text())
+    lim = json.loads((root / "portbench" / "cells"
+                      / "deepseek-v3.chat-64.json").read_text())["at_most"]
+    cfg["n_layers"] = 4
+    a = port.arch(cfg)
+    w = weights.make(port.meta_params(a), 2718281829, cuda)
+    srv = port.server(a, w, dict(slots=4, cache_len=512), cuda)
+    rng = np.random.default_rng(1)
+    for uid, n in enumerate((37, 180, 64, 300)):
+        srv.submit(port.request(uid, rng.integers(
+            0, cfg["vocab_size"], n).astype(np.int32), 8))
+    before = k1.launches_by_variant["mma"]
+    done = srv.run_until_drained()
+    launched = k1.launches_by_variant["mma"] - before
+    del srv
+    torch.cuda.empty_cache()
+    assert sorted(len(r.out_tokens) for r in done) == [8] * 4
+    # per decode step: 5 MLA products a layer, 3 a dense MLP, the shared
+    # expert's 3 and 3 for each of the 8 held experts
+    assert launched >= 7 * (4 * 5 + 3 * 3 + 3 + 8 * 3)
+    got = check.gaps(w, cfg, done, [], cuda)
+    for k, v in lim.items():
+        assert got[k] <= v, (k, got[k], v)
+    assert got["compared"] == 32

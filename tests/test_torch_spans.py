@@ -373,3 +373,125 @@ def test_wall_clock_reads_perf_counter():
     t = time.perf_counter()
     assert t <= WallClock().now <= time.perf_counter()
     assert WallClock().advance(1e6) <= time.perf_counter()
+
+
+# -- the sigmoid-routed MoE's counters (DeepSeek-V3) -------------------------
+
+
+def _ds_serve(rec, routes=None):
+    """The small DeepSeek-V3-shaped model of ``test_torch_deepseek_v3``
+    served on the CPU (kernel backend, K1 records as above); with
+    ``routes`` each ``route_sigmoid`` call's choices are kept, with the
+    live slots of the decode step it ran in (None in a prefill)."""
+    import test_torch_deepseek_v3 as ds
+
+    from portbench import port, weights
+    from repro_torch.models import moe
+    cfg = ds.small_cfg()
+    a = port.arch(cfg)
+    w = weights.make(port.meta_params(a), 5, "cpu")
+    box = {"live": None}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "gemm", _recording_gemm([]))
+        if routes is not None:
+            route, step = moe.route_sigmoid, lm.decode_step
+
+            def keep_route(*args):
+                out = route(*args)
+                routes.append((out[1], box["live"]))
+                return out
+
+            def keep_step(*args, **kw):
+                box["live"] = [i for i in range(srv.slots)
+                               if srv.active[i] is not None]
+                try:
+                    return step(*args, **kw)
+                finally:
+                    box["live"] = None
+            mp.setattr(moe, "route_sigmoid", keep_route)
+            mp.setattr(lm, "decode_step", keep_step)
+        srv = Server(a, w, slots=3, cache_len=CACHE_LEN, backend="kernel",
+                     device="cpu", spans=rec)
+        for req in _requests(cfg["vocab_size"]):
+            srv.submit(req)
+        srv.run_until_drained()
+    return cfg, srv
+
+
+def test_moe_recorder_changes_no_token():
+    _, off = _ds_serve(None)
+    _, on = _ds_serve(SpanRecorder())
+    assert {r.uid: r.out_tokens for r in on.completed} \
+        == {r.uid: r.out_tokens for r in off.completed}
+    assert len(on.completed) == 5 and spans.ACTIVE is None
+
+
+def test_moe_counters_recount_the_live_rows_choices():
+    """``routed`` summed over a decode step's MoE layers is the (live row,
+    choice) pairs that landed on a held expert, and ``held_reached`` each
+    layer's held experts that a live row chose, by a plain recount of the
+    routing's choices; in a prefill every row counts."""
+    routes = []
+    cfg, srv = _ds_serve(SpanRecorder(), routes)
+    mo = cfg["moe"]
+    lo, hi = mo["held_from"], mo["held_from"] + mo["held"]
+    recs = srv.spans.records()
+    ss = recs["spans"]
+    by_id = {s["id"]: s for s in ss}
+    experts = [s for s in ss if s["name"] == "model.experts"]
+    assert len(experts) == len(routes) \
+        == (srv.decode_steps + srv.prefills) * (cfg["n_layers"] - 3)
+    per_step, want_step = {}, {}
+    for s, (idx, live) in zip(experts, routes):
+        assert by_id[s["parent"]]["name"] == "model.mlp"
+        rows = idx if live is None else idx[live]
+        held = [[int(e) for e in r if lo <= e < hi] for r in rows.tolist()]
+        assert s["attrs"]["routed"] == sum(map(len, held))
+        assert s["attrs"]["held_reached"] == len({e for r in held
+                                                  for e in r})
+        top = by_id[s["parent"]]
+        while top["name"] not in ("model.decode_step", "model.prefill"):
+            top = by_id[top["parent"]]
+        per_step[top["id"]] = per_step.get(top["id"], 0) \
+            + s["attrs"]["routed"]
+        want_step[top["id"]] = want_step.get(top["id"], 0) \
+            + sum(map(len, held))
+    assert per_step == want_step and sum(per_step.values()) > 0
+    # empty slots were decoded too, and are left out of the count
+    assert any(live is not None and len(live) < srv.slots
+               for _, live in routes)
+    # the K1 products of the held experts sit in the span
+    k1 = [ln for ln in recs["launches"]
+          if by_id[ln["span"]]["name"] == "model.experts"]
+    assert k1 and all((ln["k"], ln["n"]) in {(64, 32), (32, 64)}
+                      for ln in k1)
+
+
+def test_moe_hooks_cost_one_none_test_when_off(monkeypatch):
+    """Off, the MoE's hook is one ``is None`` test: the counters are never
+    computed."""
+    from repro_torch.models import moe
+
+    def boom(*a, **k):
+        raise AssertionError("counted with no recorder")
+    monkeypatch.setattr(moe, "_count", boom)
+    _, srv = _ds_serve(None)
+    assert len(srv.completed) == 5
+
+
+def test_serve_spans_prints_the_moe_counters():
+    """``tools/serve_spans.py``'s ``experts`` reading: each MoE layer's
+    counters a decode step, beside the family file's expectation."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "serve_spans.py"
+    spec = importlib.util.spec_from_file_location("serve_spans", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cfg, srv = _ds_serve(SpanRecorder())
+    got = tool.expert_counts(srv.spans.records(), cfg)
+    assert got["layer_steps"] == srv.decode_steps * (cfg["n_layers"] - 3)
+    assert got["routed_per_live_row_even"] == 4 * 4 / 16
+    assert 0 < got["held_reached"] <= 4
+    assert 0 < got["held_reached_expected"] <= 4
+    assert tool.expert_counts({"spans": []}, cfg) is None

@@ -39,6 +39,10 @@ Prints one JSON line of readings:
 * ``tracer_decode_p50_ms``: the Tracer's synchronised decode span, the
   yardstick with the recorder on and off; ``per_step``: spans and launch
   records a ``serve.step``;
+* ``experts`` (a sigmoid-routed MoE): the ``model.experts`` counters
+  of the decode steps, ``routed`` a live row and ``held_reached``, each
+  a layer's mean, beside the family file's expectation
+  (:func:`expert_counts`);
 * ``metrics``: the harness's per-layer readings of the same run, and
   ``breakdown``: its busy time, top device ops and idle gaps;
   ``micro_ns``: the recorder's own cost per span and per launch record.
@@ -218,6 +222,41 @@ def port_readings(recs, seen, cfg):
                                                     win.t_end))]}
 
 
+def expert_counts(recs, cfg):
+    """The counters of the ``model.experts`` spans (a sigmoid-routed MoE)
+    under the decode steps: each MoE layer's ``held_reached`` and its
+    ``routed`` pairs a live row, as means over (step, layer), beside
+    what ``families/<family>.py`` expects at each step's live rows
+    (``held_reached``) and under routing spread evenly (``routed``:
+    top_k x held / num_experts); None without such spans."""
+    import importlib
+    fam = importlib.import_module(f"portbench.families.{cfg['family']}")
+    ss = recs["spans"]
+    by_id = {s["id"]: s for s in ss}
+    rows, reached, expect = [], [], []
+    for s in ss:
+        if s["name"] != "model.experts":
+            continue
+        up = by_id[s["parent"]]
+        while up["name"] != "serve.decode" and up["parent"] is not None:
+            up = by_id[up["parent"]]
+        if up["name"] != "serve.decode":
+            continue                    # a prefill's
+        m = len(up["attrs"]["positions"])
+        rows.append(s["attrs"]["routed"] / m)
+        reached.append(s["attrs"]["held_reached"])
+        expect.append(fam.held_reached(cfg, m))
+    if not rows:
+        return None
+    mo = cfg["moe"]
+    return {"layer_steps": len(rows),
+            "routed_per_live_row": statistics.mean(rows),
+            "routed_per_live_row_even": mo["top_k"] * fam.held(cfg)
+            / mo["num_experts"],
+            "held_reached": statistics.mean(reached),
+            "held_reached_expected": statistics.mean(expect)}
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(prog="tools/serve_spans.py")
     ap.add_argument("--workload", default="qwen3-1.7b.chat")
@@ -285,6 +324,8 @@ def main(argv) -> int:
         recs = seen["rec"].records()
         line.update(readings(recs, tracer, seen, trace.OUTSIDE))
         line["port"] = port_readings(recs, seen, cell["cfg"])
+        if cell["cfg"].get("moe"):
+            line["experts"] = expert_counts(recs, cell["cfg"])
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:
