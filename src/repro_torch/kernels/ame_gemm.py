@@ -117,11 +117,13 @@ def default_blocks(m: int, n: int, kind: str = "mma") -> Tuple[int, int, int]:
 def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
              block_m: Optional[int] = None, block_n: Optional[int] = None,
              block_k: Optional[int] = None,
-             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+             out_dtype: Optional[torch.dtype] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A(m,k) @ B(k,n) on the card, f32 accumulation resident for the
     whole K walk, cast once to ``out_dtype`` (default ``a.dtype``).  Name
     all three block sizes or none; a named block must be compiled in for
-    the variant the operands take.
+    the variant the operands take.  ``out``, a contiguous (m, n) tensor
+    of ``out_dtype`` on A's device, takes C in place of a new tensor.
 
     Takes CUDA tensors only: the CPU path is :func:`repro_torch.kernels.
     ref.gemm`, chosen by :func:`repro_torch.kernels.ops.gemm`.  Under a
@@ -156,7 +158,13 @@ def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"ame_gemm needs both operands on one CUDA device, "
                          f"got {a.device} and {b.device}")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    elif tuple(out.shape) != (m, n) or out.dtype != out_dtype \
+            or out.device != a.device or not out.is_contiguous():
+        raise ValueError(f"ame_gemm out must be a contiguous {(m, n)} "
+                         f"{out_dtype} tensor on {a.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
     if m == 0 or n == 0:
         return out
     fn = _fn("ame_gemm_mma" if kind == "mma" else "ame_gemm")

@@ -31,7 +31,7 @@ PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -101,12 +101,14 @@ def _counts(device: torch.device, n: int) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_positions: torch.Tensor,
-                     q_positions: torch.Tensor) -> torch.Tensor:
+                     q_positions: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, 1, H, D), k/v (B, clen, Hkv, D), ``kv_positions`` (B, clen)
     int32 (-1 unwritten), ``q_positions`` (B,) int32/int64 -> (B, 1, H, D)
-    in q's dtype on the card.  Causal over each slot's cache: key j is
-    seen where 0 <= kv_positions[b, j] <= q_positions[b], among the first
-    ``min(q_positions[b] + 1, clen)`` slots.
+    in q's dtype on the card (``out``, a contiguous tensor of q's shape,
+    dtype and device, in place of a new one).  Causal over each slot's
+    cache: key j is seen where 0 <= kv_positions[b, j] <= q_positions[b],
+    among the first ``min(q_positions[b] + 1, clen)`` slots.
 
     Takes CUDA tensors only, forward-only (the output carries no autograd
     history); under a span recorder each launch appends a
@@ -159,7 +161,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"device, got {[str(t.device) for t in tensors]}")
     forward_only("decode_attention", q, k, v)
     split_len, nsplit = splits(b, blocks, clen)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device or not out.is_contiguous() \
+            or out.data_ptr() % 16:
+        raise ValueError(f"decode_attention out must be a contiguous "
+                         f"{tuple(q.shape)} {q.dtype} tensor on {q.device} "
+                         f"on 16 bytes, got {tuple(out.shape)} {out.dtype}")
     ws = torch.empty(b * blocks * nsplit * G * (d + 2) if nsplit > 1 else 0,
                      dtype=torch.float32, device=q.device)
     counts = _counts(q.device, b * blocks)

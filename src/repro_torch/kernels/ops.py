@@ -15,10 +15,18 @@ never dropped without a word.
 DTensor operands (a sharded step, ``launch/steps``) run the same dispatch
 on each rank's local shards: K1 through ``models.layers.sharded_matmul``,
 K4 through :func:`ssd4`.
+
+Every launch of K1 from :func:`gemm`, and of the decode attention kernel
+from ``models/attention.py``, goes through :func:`launch`, which looks
+the kernel up by name at the call, so that a wrapper put in its place is
+the one called, and which hands the launch to :data:`split` while one is
+set: ``models/decode_graph.py`` sets it while it captures a decode step,
+to launch each kernel between the captured pieces.
 """
 from __future__ import annotations
 
-from typing import Optional
+import sys
+from typing import Callable, Optional
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
@@ -29,6 +37,19 @@ from repro_torch.kernels.ame_gemm import ame_gemm
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.elementwise import ame_elementwise
 from repro_torch.kernels.ssd_scan import ssd_scan
+
+#: while a decode step is captured, the function that takes each launch
+#: in its place (``split(owner, name, args, kw)``; see :func:`launch`)
+split: Optional[Callable] = None
+
+
+def launch(owner, name: str, *args, **kw):
+    """``getattr(owner, name)(*args, **kw)``: a hand-written kernel's
+    launch through the module attribute that holds its wrapper, or handed
+    to :data:`split` while one is set."""
+    if split is not None:
+        return split(owner, name, args, kw)
+    return getattr(owner, name)(*args, **kw)
 
 
 def forward_only(what: str, *tensors: torch.Tensor) -> None:
@@ -47,7 +68,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
     if use_kernel:
         forward_only("ops.gemm", a, b)
     if use_kernel and a.is_cuda:
-        return ame_gemm(a, b, out_dtype=out_dtype, **blocks)
+        return launch(sys.modules[__name__], "ame_gemm", a, b,
+                      out_dtype=out_dtype, **blocks)
     return ref.gemm(a, b, out_dtype=out_dtype)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
+import sys
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +28,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
+from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense, dense_init, norm_init, out_constrain,
@@ -297,8 +299,11 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
         if window == 0 and heads_shardable \
                 and takes_decode_kernel(*map(_local, (q, kk, vv))):
             # one launch over the bf16 cache as it is stored, live keys only
-            out = (_decode_local if isinstance(kk, DTensor)
-                   else decode_attention)(q, kk, vv, cache["pos"], pos)
+            if isinstance(kk, DTensor):
+                out = _decode_local(q, kk, vv, cache["pos"], pos)
+            else:
+                out = ops.launch(sys.modules[__name__], "decode_attention",
+                                 q, kk, vv, cache["pos"], pos)
         else:
             out = chunked_attention(
                 q, kk, vv, causal=True, window=window,

@@ -15,6 +15,7 @@ launches K1 on them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -184,17 +185,30 @@ def apply_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # -- rotary ------------------------------------------------------------------
 
 
+def rope_freq(theta: float, half: int, device) -> torch.Tensor:
+    """RoPE's frequencies theta ** (-i / half), i < half, (half,) f32."""
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exps)
+
+
+#: :func:`rope_freq` built once per (theta, half, device): a call then
+#: uploads nothing, which a CUDA graph's capture could not take
+cached_rope_freq = functools.lru_cache(maxsize=None)(rope_freq)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          freq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., T, H, D) rotated by position.  positions (..., T).
-    ``freq`` (D/2,) f32 replaces ``theta``'s frequencies (YaRN's)."""
+    ``freq`` (D/2,) f32 replaces ``theta``'s frequencies (YaRN's).  A
+    plain tensor takes the cached frequencies; a DTensor or a fake
+    tensor, which must not meet a tensor made outside its own mode,
+    builds them per call."""
     d = x.shape[-1]
     half = d // 2
     if freq is None:
-        exps = -torch.arange(0, half, dtype=torch.float32,
-                             device=x.device) / half
-        freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                      device=x.device), exps)
+        freq = (cached_rope_freq if type(x) is torch.Tensor
+                else rope_freq)(theta, half, x.device)
     ang = positions[..., None].float() * freq                 # (..., T, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.device import resolve_device
+from repro_torch.models import decode_graph
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, as_backend, dense, dense_init, embed,
@@ -287,21 +288,31 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
 def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
                 backend: Backend = TORCH) -> Tuple[torch.Tensor, Any]:
     """One token per sequence.  tokens (B,1), positions (B,); ``caches``
-    is updated in place and returned.  Under a span recorder this is a
-    ``model.decode_step`` span."""
+    is updated in place and returned.  On the card the step's torch
+    operations run from CUDA graphs of its buffers from their second call
+    on, between the hand-written kernels' launches
+    (:mod:`repro_torch.models.decode_graph`).  Under a span recorder this
+    is a ``model.decode_step`` span, with ``graph: "capture"`` or
+    ``"replay"`` where it ran from a graph."""
     if cfg.pos_embed == "sinusoidal":
         raise NotImplementedError("encoder-only archs have no decode step")
     rec = spans.ACTIVE
     if rec is not None:
         sid = rec.open("model.decode_step")
-    backend = as_backend(backend)
-    h = embed(params["embed"], tokens, cfg.compute_dtype_())   # (B,1,d)
-    h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
-                                       positions=positions[:, None],
-                                       caches=caches, backend=backend,
-                                       causal=True)
-    h = apply_norm(params["final_norm"], h, cfg.norm_eps)
-    logits = _logits(params, h[:, 0], cfg)
+    logits = decode_graph.run(_decode_body, params, tokens, positions,
+                              caches, cfg, as_backend(backend))
     if rec is not None:
         rec.close(sid)
     return logits, caches
+
+
+def _decode_body(params, tokens, positions, caches, cfg: ArchConfig,
+                 backend: Backend) -> torch.Tensor:
+    """The decode step's logits; ``caches`` is updated in place."""
+    h = embed(params["embed"], tokens, cfg.compute_dtype_())   # (B,1,d)
+    h, _, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                  positions=positions[:, None],
+                                  caches=caches, backend=backend,
+                                  causal=True)
+    h = apply_norm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, h[:, 0], cfg)

@@ -30,11 +30,17 @@ A :class:`SpanRecorder` given to ``Server(spans=...)`` (or set as
 * **launch records** of K1 (``ame_gemm``: m, k, n, in_bytes,
   out_bytes) and of the decode attention (``decode_attention``: slots b,
   KV heads hkv, group size g, head dim d, cache length clen, in_bytes),
-  each with the id of the span open at the launch and a stamp.  A
-  record belongs to its span, and a span is the unit that runs: code
-  that replays captured work records the launches once under the
-  capturing span and marks each replaying span with an attribute naming
-  it, so the records never assume that Python sees every launch.
+  each with the id of the span open at the launch and a stamp.
+
+* **a decode step run from its CUDA graph.**  On the card
+  ``model.decode_step`` runs its torch operations from CUDA graphs of
+  its buffers from their second call on (``models/decode_graph.py``),
+  and launches K1 and the decode attention from Python between them.
+  Such a step's span carries ``graph: "capture"`` (the call that
+  captured the graphs) or ``graph: "replay"``, and the records of all
+  its launches, as an eager step's; it has no ``model.attention``,
+  ``model.mlp`` or ``model.experts`` span inside it, and so no MoE
+  counters, since nothing of a recorder is captured into a graph.
 
 * **clock anchors** — ``(perf_counter_ns, time_ns)`` pairs read back to
   back when the recorder is made and at each :meth:`SpanRecorder.records`

@@ -1182,6 +1182,10 @@ nt = want.argmax(-1)
 # both steps attend with the decode kernel, the sharded one on its DTensor
 # caches' local shards: one launch a layer each
 from repro_torch.kernels import decode_attention as kd
+# the unsharded step captures its CUDA graphs in its second call and
+# replays them after; the sharded one (DTensors) runs eagerly every time
+from repro_torch.models import decode_graph as dg
+counts = (dg.eager, dg.captures, dg.replays)
 for i in range(6):
     pos = torch.full((2,), 16 + i, dtype=torch.long, device=dev)
     before = kd.launches
@@ -1195,6 +1199,9 @@ for i in range(6):
     assert kd.launches - before == 2 * cfg.n_layers, kd.launches - before
     assert torch.equal(got.full_tensor(), want), i
     nt = want.argmax(-1)
+rise = tuple(a - b for a, b in zip((dg.eager, dg.captures, dg.replays),
+                                   counts))
+assert rise == (1 + 6, 1, 4), rise
 dist.destroy_process_group()
 print("mesh OK")
 """
@@ -1206,7 +1213,9 @@ def test_sharded_serve_on_a_one_card_mesh_equals_the_unsharded(cuda):
     per projection, and its logits and 6 decode steps' are ``torch.equal``
     to the unsharded serve's (the same kernels at the same shapes; both
     decodes launch the decode attention kernel once a layer, the sharded
-    one on its caches' local shards)."""
+    one on its caches' local shards); the unsharded decode captures its
+    CUDA graphs in its second step and replays them after, the sharded
+    one stays eager."""
     import os
     import subprocess
     import sys
@@ -1227,8 +1236,9 @@ def test_span_recorder_records_every_k1_launch_on_the_card(cuda):
     """A reduced bf16 qwen3 served on the card with ``Server(spans=...)``
     and without: the same tokens; the K1 records equal the rise in
     ``ame_gemm.launches``, 7 a layer under each ``model.decode_step`` and
-    ``model.prefill``, each under its block's span, every launch on
-    ``mma``; no recorder is active afterwards."""
+    ``model.prefill``, each under its block's span, or directly under a
+    decode step run from its CUDA graphs (``graph`` noted), every launch
+    on ``mma``; no recorder is active afterwards."""
     import numpy as np
 
     from repro_torch.configs import get
@@ -1260,9 +1270,14 @@ def test_span_recorder_records_every_k1_launch_on_the_card(cuda):
     assert len(k1s) == rise_on
     per = {}
     for ln in k1s:
-        assert by_id[ln["span"]]["name"] in ("model.attention", "model.mlp")
+        span = by_id[ln["span"]]
         assert ln["in_bytes"] == 2
-        top = by_id[by_id[ln["span"]]["parent"]]
+        if span["name"] == "model.decode_step":
+            assert span["attrs"]["graph"] in ("capture", "replay")
+            top = span
+        else:
+            assert span["name"] in ("model.attention", "model.mlp")
+            top = by_id[span["parent"]]
         per[top["id"]] = per.get(top["id"], 0) + 1
     tops = [s for s in recs["spans"]
             if s["name"] in ("model.decode_step", "model.prefill")]

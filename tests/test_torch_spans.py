@@ -9,7 +9,9 @@ replaced by the plain product followed by the record that the K1
 wrapper appends after a launch; the card runs the wrapper itself and
 holds its records to ``ame_gemm.launches`` (``tests/test_torch_gpu.py``).
 The decode attention kernel's records are held on the card here
-(``gpu``-marked: one a layer under each decode step's attention spans).
+(``gpu``-marked: one a layer under each decode step's attention spans),
+and so are the records of decode steps captured into and replayed from
+their CUDA graphs.
 """
 import time
 
@@ -288,9 +290,11 @@ def cuda():
 def test_card_decode_records_one_decode_attention_launch_a_layer(cuda):
     """A reduced bf16 qwen3 served on the card under a recorder: every
     ``model.decode_step`` holds one decode attention record a layer, each
-    under its layer's ``model.attention`` span and naming the slots and the
-    cache; a prefill holds none; the records equal the rise in the
-    kernel's ``launches``."""
+    naming the slots and the cache, under its layer's ``model.attention``
+    span in the eager first step and directly under the step in the steps
+    run from its CUDA graphs (``graph`` noted, no span inside); a prefill
+    holds none; the records equal the rise in the kernel's
+    ``launches``."""
     from repro_torch.kernels import decode_attention as kd
     cfg = get("qwen3-1.7b").reduced().with_policy(compute_dtype="bfloat16")
     params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
@@ -310,8 +314,12 @@ def test_card_decode_records_one_decode_attention_launch_a_layer(cuda):
     per = {}
     for ln in mine:
         span = by_id[ln["span"]]
-        assert span["name"] == "model.attention"
-        top = by_id[span["parent"]]
+        if span["name"] == "model.attention":
+            top = by_id[span["parent"]]
+            assert top["attrs"] == {}
+        else:
+            top = span
+            assert top["attrs"]["graph"] in ("capture", "replay")
         assert top["name"] == "model.decode_step"
         per[top["id"]] = per.get(top["id"], 0) + 1
         assert (ln["b"], ln["hkv"], ln["g"], ln["d"], ln["clen"],
@@ -321,6 +329,71 @@ def test_card_decode_records_one_decode_attention_launch_a_layer(cuda):
     steps = [s for s in recs["spans"] if s["name"] == "model.decode_step"]
     assert len(steps) == srv.decode_steps
     assert all(per.get(s["id"]) == cfg.n_layers for s in steps)
+    assert [s["attrs"].get("graph") for s in steps[:3]] \
+        == [None, "capture", "replay"]
+
+
+def _step_records(recs):
+    """Each ``model.decode_step`` span with the launch records made under
+    it (kernel and fields, in launch order) and whether a span lies
+    inside it."""
+    parent = {s["id"]: s["parent"] for s in recs["spans"]}
+    tops = {s["id"]: s for s in recs["spans"]
+            if s["name"] == "model.decode_step"}
+    mine = {sid: [] for sid in tops}
+    for ln in recs["launches"]:
+        at = ln["span"]
+        while at is not None and at not in tops:
+            at = parent[at]
+        if at is not None:
+            mine[at].append((ln["kernel"],) + tuple(
+                ln[f] for f in spans.LAUNCH_FIELDS[ln["kernel"]]))
+    inner = {parent[s["id"]] for s in recs["spans"]}
+    return [(tops[sid], mine[sid], sid in inner) for sid in tops]
+
+
+@pytest.mark.gpu
+def test_card_graph_steps_carry_their_launch_records(cuda, monkeypatch):
+    """A reduced bf16 qwen3 served on the card under a recorder, with its
+    decode steps' graphs (the first step eager, the second captures, the
+    rest replay) and without (every step eager): the same tokens; the
+    capturing and replaying ``model.decode_step`` spans carry ``graph:
+    "capture"`` and ``"replay"``, no span inside them, and the K1 and
+    decode attention records of an eager step, equal in count, order and
+    shape."""
+    from repro_torch.models import decode_graph as dg
+    cfg = get("qwen3-1.7b").reduced().with_policy(compute_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    served = []
+    for graphs in (True, False):
+        with monkeypatch.context() as mp:
+            if not graphs:
+                mp.setattr(dg, "engages", lambda ts: False)
+            srv = Server(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                         backend="kernel", device=cuda,
+                         spans=SpanRecorder())
+            for req in _requests(cfg.vocab_size):
+                srv.submit(req)
+            while srv.queue or any(a is not None for a in srv.active):
+                srv.step()
+        served.append(srv)
+    graph, eager = served
+    assert {r.uid: r.out_tokens for r in graph.completed} \
+        == {r.uid: r.out_tokens for r in eager.completed}
+    mine = _step_records(graph.spans.records())
+    steps = _step_records(eager.spans.records())
+    assert len(mine) == graph.decode_steps == eager.decode_steps > 2
+    assert all(s["attrs"] == {} and inner for s, _, inner in steps)
+    assert mine[0][0]["attrs"] == {} and mine[0][2]
+    want = steps[0][1]
+    assert len(want) == (K1_PER_LAYER + 1) * cfg.n_layers
+    assert [k for k, *_ in want].count("decode_attention") == cfg.n_layers
+    assert [s["attrs"] for s, _, _ in mine[1:]] \
+        == [{"graph": "capture"}] + [{"graph": "replay"}] * (len(mine) - 2)
+    for s, got, inner in mine[1:]:
+        assert got == want and not inner
+    assert spans.ACTIVE is None
 
 
 def _span(i, parent, name, s, e):

@@ -46,6 +46,11 @@ Prints one JSON line of readings:
 * ``metrics``: the harness's per-layer readings of the same run, and
   ``breakdown``: its busy time, top device ops and idle gaps;
   ``micro_ns``: the recorder's own cost per span and per launch record.
+
+Every decode step after the warm-up runs from its CUDA graphs
+(``models/decode_graph.py``), whose spans hold no block span: such a
+step's host time reads as ``rest`` in ``decode_split``, and ``experts``
+is None.
 """
 import argparse
 import json
