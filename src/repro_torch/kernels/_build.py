@@ -14,6 +14,11 @@ instantiate more configurations) builds the same way, with ``csrc/`` on its
 include path.  Nothing here runs at import: the
 CPU tests import every module of the port and never build.  A failed
 build raises; there is no fallback.
+
+The wrappers bind their C entry points through :func:`entry` (each keeps
+its argtypes beside its C signature), raise :func:`launch_error` for a
+launch's nonzero return code, and refuse autograd with
+:func:`forward_only`.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -36,6 +43,8 @@ FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 #: name -> loaded library (one per process; a library never changes once
 #: loaded because its file name carries the source hash)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: (library, symbol) -> its bound C function (:func:`entry`)
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 #: name -> {"seconds": build wall time (0.0 when cached), "ptxas": the
 #: ``-Xptxas -v`` register / shared-memory lines of the last build}
 BUILD_INFO: Dict[str, Dict] = {}
@@ -133,3 +142,31 @@ def load(name: str, src_dir: Path = CSRC) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name, src_dir)))
         _LIBS[name] = lib
     return lib
+
+
+def entry(lib: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C function ``symbol`` of library ``lib`` (:func:`load`), its
+    ``argtypes`` set and returning ``c_int``; bound once per (library,
+    symbol)."""
+    fn = _ENTRIES.get((lib, symbol))
+    if fn is None:
+        fn = getattr(load(lib), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[lib, symbol] = fn
+    return fn
+
+
+def launch_error(rc: int, what: str, at: str) -> RuntimeError:
+    """The error a wrapper raises for a launch's nonzero return code
+    ``rc``: ``"<what> launch failed: cudaError <rc> at <at>"``."""
+    return RuntimeError(f"{what} launch failed: cudaError {rc} at {at}")
+
+
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``tensors``: the
+    kernel path has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel path is forward-only, as the reference's "
+            f"Pallas path is; train on backend='torch', or call it under "
+            f"torch.no_grad()")

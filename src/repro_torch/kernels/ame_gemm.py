@@ -62,26 +62,11 @@ launches = 0
 #: the same launches by variant
 launches_by_variant = {"mma": 0, "fma": 0}
 
-_fns = {}
-
-
-def _fn(name: str):
-    """The C entry point ``name`` with its argtypes set, looked up once."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("ame_gemm")
-        for entry in ("ame_gemm", "ame_gemm_mma"):
-            f = getattr(lib, entry)
-            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-                + [ctypes.c_void_p]
-            f.restype = ctypes.c_int
-            _fns[entry] = f
-        f = lib.ame_gemm_mma_smem_bytes
-        f.argtypes = [ctypes.c_int] * 3
-        f.restype = ctypes.c_int
-        _fns["ame_gemm_mma_smem_bytes"] = f
-        fn = _fns[name]
-    return fn
+#: C arguments of ``ame_gemm`` and ``ame_gemm_mma`` (pointers to a, b, c;
+#: m, n, k, in and out dtype codes, block_m, block_n, block_k; stream) and
+#: of ``ame_gemm_mma_smem_bytes`` (block_m, block_n, block_k)
+C_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+SMEM_ARGTYPES = [ctypes.c_int] * 3
 
 
 def variant(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -167,19 +152,18 @@ def ame_gemm(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(out.shape)} {out.dtype} on {out.device}")
     if m == 0 or n == 0:
         return out
-    fn = _fn("ame_gemm_mma" if kind == "mma" else "ame_gemm")
+    fn = _build.entry("ame_gemm", "ame_gemm_mma" if kind == "mma"
+                      else "ame_gemm", C_ARGTYPES)
     rc = fn(pa, pb, out.data_ptr(), m, n, k,
             DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype], *blocks,
             torch._C._cuda_getCurrentRawStream(a.device.index))
-    if rc != 0:
-        raise RuntimeError(f"ame_gemm {kind} launch failed: cudaError {rc} "
-                           f"at (m,k,n)={(m, k, n)} {a.dtype}->{out_dtype} "
-                           f"block {blocks}")
+    if rc:
+        raise _build.launch_error(rc, f"ame_gemm {kind}",
+                                  f"(m,k,n)={(m, k, n)} {a.dtype}->"
+                                  f"{out_dtype} block {blocks}")
     launches += 1
     launches_by_variant[kind] += 1
-    rec = spans.ACTIVE
-    if rec is not None:
-        rec.launch("k1", m, k, n, a.element_size(), out.element_size())
+    spans.record_launch("k1", m, k, n, a.element_size(), out.element_size())
     return out
 
 

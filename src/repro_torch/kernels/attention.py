@@ -40,27 +40,16 @@ MMA_BLOCKS = ((64, 64), (64, 32), (16, 64), (16, 32))
 HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: C arguments of ``flash_attention`` (pointers to q, k, v, o; bh, tq, tk,
+#: d; scale; causal, window, dtype code, block_q, block_k; stream) and of
+#: ``flash_attention_smem_bytes`` (block_q, block_k, d, dtype code)
+C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] \
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+SMEM_ARGTYPES = [ctypes.c_int] * 4
+
 #: kernel launches since the last reset (the wrapper adds one per launch,
 #: of either kernel)
 launches = 0
-
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The flash_attention library, its entry points' argtypes set, loaded
-    once."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("flash_attention")
-        lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 \
-            + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        lib.flash_attention.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.flash_attention_smem_bytes.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def padded_dim(d: int) -> int:
@@ -163,13 +152,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, tq, tk,
-        d, d ** -0.5, int(bool(causal)), int(window), DTYPE_CODES[q.dtype],
-        bq, bk, torch._C._cuda_getCurrentRawStream(q.device.index))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {rc} "
-                           f"at (bh,tq,tk,d)={(bh, tq, tk, d)} {q.dtype} "
-                           f"block ({bq}, {bk})")
+    fn = _build.entry("flash_attention", "flash_attention", C_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, tq,
+            tk, d, d ** -0.5, int(bool(causal)), int(window),
+            DTYPE_CODES[q.dtype], bq, bk,
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+    if rc:
+        raise _build.launch_error(rc, "flash_attention",
+                                  f"(bh,tq,tk,d)={(bh, tq, tk, d)} {q.dtype} "
+                                  f"block ({bq}, {bk})")
     launches += 1
     return out

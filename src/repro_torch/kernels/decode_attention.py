@@ -36,7 +36,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import forward_only
 from repro_torch.launch import hw
 from repro_torch.obs import spans
 
@@ -53,26 +52,19 @@ MIN_SPLIT = 64
 #: the grid aims at this many blocks an SM with every slot full (at the
 #: chat cell's step, 16 read 0.0275 ms on an H100, 8 0.0319 and 32 0.0299)
 BLOCKS_PER_SM = 16
+#: C arguments of ``decode_attention`` (pointers to q, k, v, kv_positions,
+#: q_positions; q_positions is int64; pointers to out, the workspace, the
+#: arrival counts; b, h, hkv, d, clen, G, split_len, nsplit; scale; dtype
+#: code; stream)
+C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
+    + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] \
+    + [ctypes.c_void_p]
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
 
-_FN = None
 #: device index -> the int32 arrival counts, zero between launches
 _COUNTS: Dict[int, torch.Tensor] = {}
-
-
-def _fn():
-    """The C entry point with its argtypes set, loaded once."""
-    global _FN
-    if _FN is None:
-        f = _build.load("decode_attention").decode_attention
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_float] \
-            + [ctypes.c_int] + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        _FN = f
-    return _FN
 
 
 def group_block(g: int) -> int:
@@ -159,7 +151,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"decode_attention needs every operand on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
-    forward_only("decode_attention", q, k, v)
+    _build.forward_only("decode_attention", q, k, v)
     split_len, nsplit = splits(b, blocks, clen)
     if out is None:
         out = torch.empty_like(q)
@@ -172,18 +164,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ws = torch.empty(b * blocks * nsplit * G * (d + 2) if nsplit > 1 else 0,
                      dtype=torch.float32, device=q.device)
     counts = _counts(q.device, b * blocks)
-    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               kv_positions.data_ptr(), q_positions.data_ptr(),
-               int(q_positions.dtype == torch.int64), out.data_ptr(),
-               ws.data_ptr(), counts.data_ptr(), b, h, hkv, d, clen, G,
-               split_len, nsplit, d ** -0.5, DTYPE_CODES[q.dtype],
-               torch._C._cuda_getCurrentRawStream(q.device.index))
-    if rc != 0:
-        raise RuntimeError(f"decode_attention launch failed: cudaError {rc} "
-                           f"at (b,clen,hkv,g,d)={(b, clen, hkv, g, d)} "
-                           f"{q.dtype}")
+    fn = _build.entry("decode_attention", "decode_attention", C_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_positions.data_ptr(), q_positions.data_ptr(),
+            int(q_positions.dtype == torch.int64), out.data_ptr(),
+            ws.data_ptr(), counts.data_ptr(), b, h, hkv, d, clen, G,
+            split_len, nsplit, d ** -0.5, DTYPE_CODES[q.dtype],
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+    if rc:
+        raise _build.launch_error(rc, "decode_attention",
+                                  f"(b,clen,hkv,g,d)={(b, clen, hkv, g, d)} "
+                                  f"{q.dtype}")
     launches += 1
-    rec = spans.ACTIVE
-    if rec is not None:
-        rec.launch("decode_attention", b, hkv, g, d, clen, k.element_size())
+    spans.record_launch("decode_attention", b, hkv, g, d, clen,
+                        k.element_size())
     return out

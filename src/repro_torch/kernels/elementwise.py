@@ -25,24 +25,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: (threads a block, 16-byte vectors a thread) of the pass (kThreads, kVecs
 #: in the source), chosen by tools/k4_block_sweep.py
 PASS = (128, 1)
+#: C arguments of ``ame_elementwise`` (pointers to a, b, out; n; dtype
+#: code, kind, relu; stream)
+C_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
-
-_fn = None
-
-
-def _kernel():
-    """The C entry point with its argtypes set, looked up once."""
-    global _fn
-    if _fn is None:
-        f = _build.load("ame_elementwise").ame_elementwise
-        f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        _fn = f
-    return _fn
-
 
 def ame_elementwise(a: torch.Tensor, b: torch.Tensor, *, kind: str = "add",
                     relu: bool = False) -> torch.Tensor:
@@ -70,12 +59,13 @@ def ame_elementwise(a: torch.Tensor, b: torch.Tensor, *, kind: str = "add",
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-                   DTYPE_CODES[a.dtype], KINDS[kind], int(bool(relu)),
-                   torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ame_elementwise launch failed: cudaError {rc} "
-                           f"at {tuple(a.shape)} {a.dtype} {kind} "
-                           f"relu={relu}")
+    fn = _build.entry("ame_elementwise", "ame_elementwise", C_ARGTYPES)
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+            DTYPE_CODES[a.dtype], KINDS[kind], int(bool(relu)),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if rc:
+        raise _build.launch_error(rc, "ame_elementwise",
+                                  f"{tuple(a.shape)} {a.dtype} {kind} "
+                                  f"relu={relu}")
     launches += 1
     return out

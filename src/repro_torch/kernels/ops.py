@@ -16,16 +16,16 @@ DTensor operands (a sharded step, ``launch/steps``) run the same dispatch
 on each rank's local shards: K1 through ``models.layers.sharded_matmul``,
 K4 through :func:`ssd4`.
 
-Every launch of K1 from :func:`gemm`, and of the decode attention kernel
-from ``models/attention.py``, goes through :func:`launch`, which looks
-the kernel up by name at the call, so that a wrapper put in its place is
-the one called, and which hands the launch to :data:`split` while one is
-set: ``models/decode_graph.py`` sets it while it captures a decode step,
-to launch each kernel between the captured pieces.
+Every launch of a hand-written kernel on the model path (K1 from
+:func:`gemm`, the decode attention from ``models/attention.py``) goes
+through :func:`launch`, which looks the wrapper up by name on this module
+at the call, so that a wrapper put in its place is the one called, and
+which hands the launch to :data:`split` while one is set:
+``models/decode_graph.py`` sets it while it captures a decode step, to
+launch each kernel between the captured pieces.
 """
 from __future__ import annotations
 
-import sys
 from typing import Callable, Optional
 
 import torch
@@ -33,33 +33,26 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import forward_only
 from repro_torch.kernels.ame_gemm import ame_gemm
 from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.elementwise import ame_elementwise
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.sharding.context import placed
 
 #: while a decode step is captured, the function that takes each launch
-#: in its place (``split(owner, name, args, kw)``; see :func:`launch`)
+#: in its place (``split(name, args, kw)``; see :func:`launch`)
 split: Optional[Callable] = None
 
 
-def launch(owner, name: str, *args, **kw):
-    """``getattr(owner, name)(*args, **kw)``: a hand-written kernel's
-    launch through the module attribute that holds its wrapper, or handed
-    to :data:`split` while one is set."""
+def launch(name: str, *args, **kw):
+    """``ops.<name>(*args, **kw)``: a hand-written kernel's launch through
+    the attribute of this module that holds its wrapper, or handed to
+    :data:`split` while one is set."""
     if split is not None:
-        return split(owner, name, args, kw)
-    return getattr(owner, name)(*args, **kw)
-
-
-def forward_only(what: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a gradient through ``tensors``: the
-    kernel path has no backward."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what}: the kernel path is forward-only, as the reference's "
-            f"Pallas path is; train on backend='torch', or call it under "
-            f"torch.no_grad()")
+        return split(name, args, kw)
+    return globals()[name](*args, **kw)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
@@ -68,8 +61,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = False,
     if use_kernel:
         forward_only("ops.gemm", a, b)
     if use_kernel and a.is_cuda:
-        return launch(sys.modules[__name__], "ame_gemm", a, b,
-                      out_dtype=out_dtype, **blocks)
+        return launch("ame_gemm", a, b, out_dtype=out_dtype, **blocks)
     return ref.gemm(a, b, out_dtype=out_dtype)
 
 
@@ -115,16 +107,10 @@ def _ssd4_local(x, log_a, b, c, use_kernel: bool, chunk: int):
     mesh = x.device_mesh
     pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
           for p in x.placements]
-
-    def place(t):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
     fn = local_map(lambda *a: ssd4(*a, use_kernel=use_kernel, chunk=chunk),
                    out_placements=pl, in_placements=(pl,) * 4,
                    device_mesh=mesh)
-    return fn(*(place(t) for t in (x, log_a, b, c)))
+    return fn(*(placed(t, mesh, pl) for t in (x, log_a, b, c)))
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -59,25 +59,10 @@ launches_by_variant = {"mma": 0, "fma": 0}
 #: to x, log_a, b, c, y; nb, nh, t, p, n, l, x_dtype, bc_dtype; strides)
 C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
     + [ctypes.POINTER(ctypes.c_longlong)]
-
-_fns = {}
-
-
-def _fn(name: str):
-    """The C entry point ``name`` with its argtypes set, looked up once."""
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("ssd_scan")
-        f = lib.ssd_scan
-        f.argtypes = C_ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        _fns["ssd_scan"] = f
-        f = lib.ssd_scan_smem_bytes
-        f.argtypes = [ctypes.c_int] * 4
-        f.restype = ctypes.c_int
-        _fns["ssd_scan_smem_bytes"] = f
-        fn = _fns[name]
-    return fn
+#: ``ssd_scan``'s own: C_ARGTYPES, then the variant code and the stream
+SCAN_ARGTYPES = C_ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
+#: ``ssd_scan_smem_bytes`` (variant code, l, n, x dtype code)
+SMEM_ARGTYPES = [ctypes.c_int] * 4
 
 
 def _aligned(v: torch.Tensor) -> bool:
@@ -229,13 +214,13 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    rc = _fn("ssd_scan")(*c_args(x, log_a, b, c, out, chunk),
-                         VARIANT_CODES[kind],
-                         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {rc} at "
-                           f"{tuple(x.shape)} N {n} chunk {lc} x {x.dtype} "
-                           f"b/c {b.dtype} variant {kind}")
+    fn = _build.entry("ssd_scan", "ssd_scan", SCAN_ARGTYPES)
+    rc = fn(*c_args(x, log_a, b, c, out, chunk), VARIANT_CODES[kind],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc:
+        raise _build.launch_error(rc, "ssd_scan",
+                                  f"{tuple(x.shape)} N {n} chunk {lc} x "
+                                  f"{x.dtype} b/c {b.dtype} variant {kind}")
     launches += 1
     launches_by_variant[kind] += 1
     return out

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import functools
 import math
-import sys
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,13 +28,12 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.layers import (
     TORCH, Backend, apply_norm, dense, dense_init, norm_init, out_constrain,
     rope,
 )
 from repro_torch.sharding.context import (
-    axis_sizes, constrain, current_mesh, einsum,
+    axis_sizes, constrain, current_mesh, einsum, placed,
 )
 
 NEG = -1e30
@@ -52,8 +50,7 @@ def splittable(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         mesh = x.device_mesh
         pl = [Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
               for i, p in enumerate(x.placements)]
-        if pl != list(x.placements):
-            x = x.redistribute(mesh, pl)
+        x = placed(x, mesh, pl)
     return x
 
 
@@ -78,17 +75,12 @@ def put_slots(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor):
         buf[bi, slot] = val.to(buf.dtype)
         return
     mesh = buf.device_mesh
-    rep = [Replicate()] * mesh.ndim
     vp = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1
           else p if p.is_shard(0) else Replicate() for p in buf.placements]
     sp = [p if p.is_shard(0) else Replicate() for p in buf.placements]
-    if not isinstance(val, DTensor):
-        val = DTensor.from_local(val, mesh, rep, run_check=False)
-    if not isinstance(slot, DTensor):
-        slot = DTensor.from_local(slot, mesh, rep, run_check=False)
     bl = buf.to_local()
-    vl = val.redistribute(mesh, vp).to_local().to(bl.dtype)
-    sl = slot.redistribute(mesh, sp).to_local()
+    vl = placed(val, mesh, vp).to_local().to(bl.dtype)
+    sl = placed(slot, mesh, sp).to_local()
     bi = torch.arange(bl.shape[0], device=bl.device)
     if any(p.is_shard(1) for p in buf.placements):
         off, size = 0, buf.shape[1]      # this rank's first slot (even)
@@ -179,27 +171,23 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_local(q, k, v, kv_positions, q_positions):
-    """:func:`decode_attention` of DTensors on each rank's local shards.
-    The caches shard slots on 'batch' and KV heads on 'model' (the KV
+    """The decode attention kernel on DTensors' local shards.  The caches
+    shard slots on 'batch' and KV heads on 'model' (the KV
     heads divide the model axis), so each rank holds whole GQA groups:
     q takes the caches' shards of dims 0 and 2, the positions their shard
     of dim 0, and the output keeps q's."""
     mesh = k.device_mesh
-    rep = [Replicate()] * mesh.ndim
     heads = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
              for p in k.placements]
     rows = [p if p.is_shard(0) else Replicate() for p in heads]
-
-    def place(t, pl):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, rep, run_check=False)
-        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
-    fn = local_map(lambda qq, *a: decode_attention(qq.contiguous(), *a),
+    fn = local_map(lambda qq, *a: ops.launch("decode_attention",
+                                             qq.contiguous(), *a),
                    out_placements=heads,
                    in_placements=(heads, heads, heads, rows, rows),
                    device_mesh=mesh)
-    return fn(place(q, heads), place(k, heads), place(v, heads),
-              place(kv_positions, rows), place(q_positions, rows))
+    return fn(placed(q, mesh, heads), placed(k, mesh, heads),
+              placed(v, mesh, heads), placed(kv_positions, mesh, rows),
+              placed(q_positions, mesh, rows))
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +290,8 @@ def attention_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
             if isinstance(kk, DTensor):
                 out = _decode_local(q, kk, vv, cache["pos"], pos)
             else:
-                out = ops.launch(sys.modules[__name__], "decode_attention",
-                                 q, kk, vv, cache["pos"], pos)
+                out = ops.launch("decode_attention", q, kk, vv,
+                                 cache["pos"], pos)
         else:
             out = chunked_attention(
                 q, kk, vv, causal=True, window=window,

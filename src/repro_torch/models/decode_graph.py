@@ -8,15 +8,15 @@ them; the port's hand-written kernels (K1, the decode attention) are
 still launched from Python, each between two graphs.
 
 **Pieces.**  While a step is captured, every launch of a hand-written
-kernel (``kernels.ops.launch``) ends the graph captured so far (a
-*piece*), replays it, launches the kernel outside any capture and begins
-the next piece.  A step is then pieces and launches in turn, and a
-replay runs them in the same order, each launch through the module
-attribute that holds the kernel's wrapper, with its output written into
-the tensor that the capture's launch returned.  So every kernel launch
-the card runs is a call of its wrapper, as in an eager step: its launch
-counter counts it, an active span recorder gets its record, and a
-wrapper put in the kernel's place (a benchmark's tracer) sees it.  The
+kernel (``kernels.ops.launch(name, ...)``) ends the graph captured so
+far (a *piece*), replays it, launches the kernel outside any capture and
+begins the next piece.  A step is then pieces and launches in turn, and
+a replay runs them in the same order, each launch through ``ops.<name>``
+as it is at the replay, with its output written into the tensor that
+the capture's launch returned.  So every kernel launch the card runs is
+a call of its wrapper, as in an eager step: its launch counter counts
+it, an active span recorder gets its record, and a wrapper put in the
+kernel's place (a benchmark's tracer) sees it.  The
 pieces share one memory pool and always run in capture order, so what
 one piece frees a later one may reuse; a piece in which nothing was
 captured is dropped.
@@ -116,8 +116,8 @@ class _Graph:
     def __init__(self, body, params, tokens, positions, caches, cfg,
                  backend):
         self.tokens, self.positions = tokens.clone(), positions.clone()
-        #: pieces (``torch.cuda.CUDAGraph``) and launches (owner, name,
-        #: args, kw), in the order they run
+        #: pieces (``torch.cuda.CUDAGraph``) and launches (name, args,
+        #: kw), in the order they run
         self.steps: List = []
         self._pool = torch.cuda.graph_pool_handle()
         self._piece: Optional[torch.cuda.CUDAGraph] = None
@@ -141,7 +141,7 @@ class _Graph:
         here.wait_stream(side)
         for s in self.steps:                 # made on ``side``, read on
             if isinstance(s, tuple):         # the caller's stream
-                s[3]["out"].record_stream(here)
+                s[2]["out"].record_stream(here)
         self.logits = _alias(logits)
         del self._active
 
@@ -159,14 +159,14 @@ class _Graph:
         piece.replay()
         self.steps.append(piece)
 
-    def _launch(self, owner, name: str, args, kw):
+    def _launch(self, name: str, args, kw):
         self._end()
         spans.ACTIVE = self._active
         try:
-            out = getattr(owner, name)(*args, **kw)
+            out = getattr(ops, name)(*args, **kw)
         finally:
             spans.ACTIVE = None
-        self.steps.append((owner, name, tuple(map(_alias, args)),
+        self.steps.append((name, tuple(map(_alias, args)),
                            dict(kw, out=_alias(out))))
         self._begin()
         return out
@@ -176,8 +176,8 @@ class _Graph:
         self.positions.copy_(positions)
         for s in self.steps:
             if isinstance(s, tuple):
-                owner, name, args, kw = s
-                getattr(owner, name)(*args, **kw)
+                name, args, kw = s
+                getattr(ops, name)(*args, **kw)
             else:
                 s.replay()
         return self.logits.clone()
@@ -217,15 +217,12 @@ def run(body, params, tokens, positions, caches, cfg, backend
     if entry is None:
         eager += 1
         return body(params, tokens, positions, caches, cfg, backend)
-    rec = spans.ACTIVE
     if entry.graph is None:
         entry.graph = _Graph(body, params, tokens, positions, caches, cfg,
                              backend)
         captures += 1
-        if rec is not None:
-            rec.note(graph="capture")
+        spans.note(graph="capture")
         return entry.graph.logits.clone()
     replays += 1
-    if rec is not None:
-        rec.note(graph="replay")
+    spans.note(graph="replay")
     return entry.graph.replay(tokens, positions)

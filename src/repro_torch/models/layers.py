@@ -25,7 +25,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import OUTPUT_SHARDED_TP_MODES, Policy
 from repro_torch.kernels import ops
-from repro_torch.sharding.context import constrain
+from repro_torch.sharding.context import constrain, placed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,11 +81,7 @@ def sharded_matmul(x: torch.Tensor, w: torch.Tensor,
 
     A plain tensor among the operands counts as replicated."""
     mesh = (w if isinstance(w, DTensor) else x).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, rep, run_check=False)
-    if not isinstance(w, DTensor):
-        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    x, w = placed(x, mesh), placed(w, mesh)
     kdim = x.dim() - 1
     names = mesh.mesh_dim_names or ()
     xp, wp, yp, xg, wg = [], [], [], [], []
@@ -111,14 +107,10 @@ def sharded_matmul(x: torch.Tensor, w: torch.Tensor,
         xg.append(Partial() if a == Replicate() and b.is_shard(1) else a)
         wg.append(Partial() if b == Replicate() and a.is_shard()
                   and not a.is_shard(kdim) else b)
-    if list(x.placements) != xp:
-        x = x.redistribute(mesh, xp)
-    if list(w.placements) != wp:
-        w = w.redistribute(mesh, wp)
     fn = local_map(lambda xl, wl: _local_matmul(xl, wl, use_kernel),
                    out_placements=yp, in_placements=(xp, wp),
                    in_grad_placements=(xg, wg), device_mesh=mesh)
-    return fn(x, w)
+    return fn(placed(x, mesh, xp), placed(w, mesh, wp))
 
 
 TORCH = Backend("torch")
@@ -287,9 +279,7 @@ def sharded_embed(table: torch.Tensor, tokens: torch.Tensor
     the following ``constrain`` reduces it.  A shard of the model dim
     (FSDP) is gathered; the tokens keep their batch shards."""
     mesh = table.device_mesh
-    rep = [Replicate()] * mesh.ndim
-    if not isinstance(tokens, DTensor):
-        tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+    tokens = placed(tokens, mesh)
     tp, kp, yp, gp = [], [], [], []
     for i in range(mesh.ndim):
         a, b = table.placements[i], tokens.placements[i]
@@ -300,10 +290,7 @@ def sharded_embed(table: torch.Tensor, tokens: torch.Tensor
             b = b if b.is_shard(0) else Replicate()
             tp.append(Replicate()), kp.append(b), yp.append(b)
             gp.append(Partial() if b.is_shard() else Replicate())
-    if list(table.placements) != tp:
-        table = table.redistribute(mesh, tp)
-    if list(tokens.placements) != kp:
-        tokens = tokens.redistribute(mesh, kp)
+    table, tokens = placed(table, mesh, tp), placed(tokens, mesh, kp)
     off, rows = 0, table.shape[0]        # this rank's first row (even)
     for i, pl in enumerate(tp):
         if pl.is_shard(0):

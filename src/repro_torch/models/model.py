@@ -267,22 +267,17 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int,
     sharded step passes them placed on its mesh), are filled in place;
     by default they are made here.  Under a span recorder
     (:mod:`repro_torch.obs.spans`) this is a ``model.prefill`` span."""
-    rec = spans.ACTIVE
-    if rec is not None:
-        sid = rec.open("model.prefill")
-    backend = as_backend(backend)
-    h, positions, _ = _embed_inputs(params, batch, cfg)
-    if caches is None:
-        caches = make_caches(cfg, h.shape[0], cache_len, h.device)
-    h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
-                                       positions=positions, caches=caches,
-                                       backend=backend,
-                                       causal=not cfg.encoder_only)
-    h = apply_norm(params["final_norm"], h, cfg.norm_eps)
-    logits = _logits(params, h[:, -1], cfg)
-    if rec is not None:
-        rec.close(sid)
-    return logits, caches
+    with spans.span("model.prefill"):
+        backend = as_backend(backend)
+        h, positions, _ = _embed_inputs(params, batch, cfg)
+        if caches is None:
+            caches = make_caches(cfg, h.shape[0], cache_len, h.device)
+        h, caches, _ = _family_fns(cfg)[2](params["stack"], h, cfg,
+                                           positions=positions,
+                                           caches=caches, backend=backend,
+                                           causal=not cfg.encoder_only)
+        h = apply_norm(params["final_norm"], h, cfg.norm_eps)
+        return _logits(params, h[:, -1], cfg), caches
 
 
 def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
@@ -296,14 +291,9 @@ def decode_step(params, tokens, positions, caches, cfg: ArchConfig,
     ``"replay"`` where it ran from a graph."""
     if cfg.pos_embed == "sinusoidal":
         raise NotImplementedError("encoder-only archs have no decode step")
-    rec = spans.ACTIVE
-    if rec is not None:
-        sid = rec.open("model.decode_step")
-    logits = decode_graph.run(_decode_body, params, tokens, positions,
-                              caches, cfg, as_backend(backend))
-    if rec is not None:
-        rec.close(sid)
-    return logits, caches
+    with spans.span("model.decode_step"):
+        return decode_graph.run(_decode_body, params, tokens, positions,
+                                caches, cfg, as_backend(backend)), caches
 
 
 def _decode_body(params, tokens, positions, caches, cfg: ArchConfig,

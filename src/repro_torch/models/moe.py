@@ -189,29 +189,27 @@ def moe_sigmoid(p, x: torch.Tensor, cfg: ArchConfig,
     local = torch.where((local >= 0) & (local < n_held), local, n_held)
     bank = p["experts"]
     y = torch.zeros((b * t, d), dtype=torch.float32, device=x.device)
-    rec = spans.ACTIVE
-    if rec is not None:
-        sid = rec.open("model.experts")
-        _count(rec, local, n_held)
-    if t == 1:
-        gate = torch.zeros((b, n_held + 1), dtype=torch.float32,
-                           device=x.device).scatter_add_(1, local, w)
-        for e in range(n_held):
-            y.addcmul_(gate[:, e:e + 1], _expert(bank, e, x2, cfg, backend))
-    else:
-        flat = local.reshape(-1)
-        counts = torch.bincount(flat, minlength=n_held + 1).tolist()
-        order = torch.argsort(flat, stable=True)
-        rows, wts = order // m.top_k, w.reshape(-1)[order]
-        at = 0
-        for e, n in enumerate(counts[:n_held]):
-            if n:
-                r = rows[at:at + n]
-                y.index_add_(0, r, _expert(bank, e, x2[r], cfg, backend)
-                             * wts[at:at + n, None])
-            at += n
-    if rec is not None:
-        rec.close(sid)
+    with spans.span("model.experts") as rec:
+        if rec:                 # the counters cost nothing when off
+            _count(rec, local, n_held)
+        if t == 1:
+            gate = torch.zeros((b, n_held + 1), dtype=torch.float32,
+                               device=x.device).scatter_add_(1, local, w)
+            for e in range(n_held):
+                y.addcmul_(gate[:, e:e + 1],
+                           _expert(bank, e, x2, cfg, backend))
+        else:
+            flat = local.reshape(-1)
+            counts = torch.bincount(flat, minlength=n_held + 1).tolist()
+            order = torch.argsort(flat, stable=True)
+            rows, wts = order // m.top_k, w.reshape(-1)[order]
+            at = 0
+            for e, n in enumerate(counts[:n_held]):
+                if n:
+                    r = rows[at:at + n]
+                    y.index_add_(0, r, _expert(bank, e, x2[r], cfg, backend)
+                                 * wts[at:at + n, None])
+                at += n
     if m.n_shared:
         y += mlp(p["shared"], x2, cfg.act, backend, policy=cfg.policy)
     return y.to(x.dtype).reshape(b, t, d)

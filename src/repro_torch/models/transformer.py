@@ -98,30 +98,25 @@ def block_apply(p, h, cfg: ArchConfig, *, positions, cache=None,
     (0.0 for an MLP block).  Under a span recorder each half, its norm
     and residual included, is a span: ``model.attention``, then
     ``model.mlp`` (the MLP or the MoE)."""
-    rec = spans.ACTIVE
-    if rec is not None:
-        sid = rec.open("model.attention")
-    x = apply_norm(p["ln1"], h, cfg.norm_eps)
-    if cfg.mla is not None:
-        a, new_cache = attn_mod.mla_apply(p["attn"], x, cfg,
-                                          positions=positions, cache=cache,
-                                          backend=backend)
-    else:
-        a, new_cache = attn_mod.attention_apply(
-            p["attn"], x, cfg, positions=positions, cache=cache,
-            backend=backend, causal=causal)
-    h = h + a
-    if rec is not None:
-        rec.close(sid)
-        sid = rec.open("model.mlp")
-    x = apply_norm(p["ln2"], h, cfg.norm_eps)
-    if "moe" in p:
-        y, aux = moe_mod.moe_apply(p["moe"], x, cfg, backend)
-    else:
-        y, aux = mlp(p["mlp"], x, cfg.act, backend, policy=cfg.policy), 0.0
-    h = h + y
-    if rec is not None:
-        rec.close(sid)
+    with spans.span("model.attention"):
+        x = apply_norm(p["ln1"], h, cfg.norm_eps)
+        if cfg.mla is not None:
+            a, new_cache = attn_mod.mla_apply(p["attn"], x, cfg,
+                                              positions=positions,
+                                              cache=cache, backend=backend)
+        else:
+            a, new_cache = attn_mod.attention_apply(
+                p["attn"], x, cfg, positions=positions, cache=cache,
+                backend=backend, causal=causal)
+        h = h + a
+    with spans.span("model.mlp"):
+        x = apply_norm(p["ln2"], h, cfg.norm_eps)
+        if "moe" in p:
+            y, aux = moe_mod.moe_apply(p["moe"], x, cfg, backend)
+        else:
+            y, aux = mlp(p["mlp"], x, cfg.act, backend,
+                         policy=cfg.policy), 0.0
+        h = h + y
     if cfg.policy.sp and h.shape[1] > 1:
         # sequence-parallel residual stream (Megatron-SP posture)
         h = constrain_sp(h)

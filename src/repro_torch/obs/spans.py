@@ -47,19 +47,27 @@ A :class:`SpanRecorder` given to ``Server(spans=...)`` (or set as
   call.  ``torch.profiler``'s kineto events carry Unix-epoch
   nanoseconds; :func:`unix_to_perf_ns` maps them onto the spans' clock.
 
-While a ``serve.step`` span is open the recorder is :data:`ACTIVE`, the
-handle through which the model and kernel layers find it without a
-change of signature.  With no recorder each hook is one ``is None``
-test: nothing is allocated and nothing synchronises.
+While a ``serve.step`` span is open the recorder is :data:`ACTIVE`.
+The serve, model and kernel layers reach it through three hooks, with
+no change of signature: ``with span(name, **attrs):`` makes the block a
+span inside the innermost open one (closed also when the block raises),
+:func:`note` adds attributes to the innermost open span, and
+:func:`record_launch` appends a kernel's launch record.  With no
+recorder each hook is one ``is None`` test: nothing is allocated and
+nothing synchronises, and :func:`span` returns the shared :data:`NULL`.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-#: the recorder of the open ``Server`` span, else None; the hooks in
-#: ``models/`` and ``kernels/`` read it
+#: the recorder of the open ``Server`` span, else None; the hooks below
+#: read it
 ACTIVE: Optional["SpanRecorder"] = None
+#: what :func:`span` returns with no recorder: a ``with`` that does
+#: nothing and binds None
+NULL = contextlib.nullcontext()
 #: the fields of each kernel's launch record, in the order ``launch``
 #: takes them
 LAUNCH_FIELDS = {"k1": ("m", "k", "n", "in_bytes", "out_bytes"),
@@ -117,6 +125,12 @@ class SpanRecorder:
         if not o:
             ACTIVE = None
 
+    def span(self, name: str, **attrs) -> "_Span":
+        """``with rec.span(name):`` the block as span ``name`` (opened and
+        closed as :meth:`open` and :meth:`close` do), bound to this
+        recorder."""
+        return _Span(self, name, attrs)
+
     def note(self, **attrs) -> None:
         """Add ``attrs`` to the innermost open span."""
         self._spans[self._open[-1]][5].update(attrs)
@@ -143,6 +157,45 @@ class SpanRecorder:
                          for k, sid, t, f in self._launches],
             "anchors": list(self.anchors),
         }
+
+
+class _Span:
+    """A span of ``rec`` opened on entering a ``with`` and closed on
+    leaving it, by a raise too."""
+    __slots__ = ("rec", "name", "attrs", "sid")
+
+    def __init__(self, rec: SpanRecorder, name: str, attrs: Dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def __enter__(self) -> SpanRecorder:
+        self.sid = self.rec.open(self.name, **self.attrs)
+        return self.rec
+
+    def __exit__(self, *exc) -> None:
+        self.rec.close(self.sid)
+
+
+def span(name: str, **attrs):
+    """``with span(name, **attrs) as rec:`` the block as a span of the
+    :data:`ACTIVE` recorder, ``rec``; :data:`NULL` (``rec`` None) with
+    none."""
+    rec = ACTIVE
+    return NULL if rec is None else _Span(rec, name, attrs)
+
+
+def note(**attrs) -> None:
+    """Add ``attrs`` to the active recorder's innermost open span."""
+    rec = ACTIVE
+    if rec is not None:
+        rec.note(**attrs)
+
+
+def record_launch(kernel: str, *fields) -> None:
+    """Record a launch of ``kernel`` (its :data:`LAUNCH_FIELDS`, in order)
+    under the active recorder's innermost open span."""
+    rec = ACTIVE
+    if rec is not None:
+        rec.launch(kernel, *fields)
 
 
 def unix_to_perf_ns(anchors: Sequence[Tuple[int, int]], unix_ns: float

@@ -69,6 +69,7 @@ from repro_torch.faults.plan import as_plan
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import model as lm
 from repro_torch.models.layers import as_backend
+from repro_torch.obs import spans
 from repro_torch.obs.metrics import Histogram
 from repro_torch.obs.spans import SpanRecorder
 from repro_torch.runtime.cluster import HostLinkLedger
@@ -242,7 +243,7 @@ class Server:
                     "serve.retries", unit="requests",
                     help="fault knock-outs requeued with backoff").inc()
 
-    def _admit(self, rec: Optional[SpanRecorder] = None):
+    def _admit(self):
         """Prefill queued requests into free slots (FIFO among requests
         whose retry backoff has elapsed)."""
         for i in range(self.slots):
@@ -253,46 +254,43 @@ class Server:
                     return           # everything queued is backing off
                 req = self.queue.pop(idx)
                 self._check_prompt(req)
-                if rec is not None:
-                    sid = rec.open("serve.admit", uid=req.uid)
-                req.admitted_at = self.clock.now
-                if self.metrics is not None:
-                    self.metrics.histogram(
-                        "serve.queue_delay_s", unit="s",
-                        help="queue wait (submit -> prefill start)"
-                    ).record(req.admitted_at - req.submitted_at)
-                toks = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
-                                       device=self.device)
-                logits, fresh = lm.prefill(self.params, {"tokens": toks},
-                                           self.cfg, cache_len=self.cache_len,
-                                           backend=self.backend)
-                self.prefills += 1
-                if rec is not None:
-                    sub = rec.open("serve.splice")
-                _splice(self.caches, fresh, i)
-                if rec is not None:
-                    rec.close(sub)
-                    sub = rec.open("serve.first_token")
-                req.out_tokens.append(int(torch.argmax(logits[0])))
-                if rec is not None:
-                    rec.close(sub)
-                # the prefill's argmax IS the first token: TTFT closes here
-                self.clock.advance(self.cost.prefill_s(len(req.prompt)))
-                req.first_token_at = self.clock.now
-                if self.metrics is not None:
-                    self.metrics.histogram(
-                        "serve.ttft_s", unit="s",
-                        help="time to first token (submit -> prefill "
-                             "argmax)").record(
-                        req.first_token_at - req.submitted_at)
-                self.active[i] = req
-                self.pos[i] = len(req.prompt)
-                # the prefill produced the prompt's KV: ship it onto the
-                # sidecar's PIM pages once, decode grows it in place
-                if self._kv is not None:
-                    self.pim_offload.kv_prefill(req.uid, len(req.prompt))
-                if rec is not None:
-                    rec.close(sid)
+                with spans.span("serve.admit", uid=req.uid):
+                    self._prefill(i, req)
+
+    def _prefill(self, i: int, req: Request):
+        """Prefill ``req`` into slot ``i``; its first token is the
+        prefill's argmax."""
+        req.admitted_at = self.clock.now
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "serve.queue_delay_s", unit="s",
+                help="queue wait (submit -> prefill start)"
+            ).record(req.admitted_at - req.submitted_at)
+        toks = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
+                               device=self.device)
+        logits, fresh = lm.prefill(self.params, {"tokens": toks}, self.cfg,
+                                   cache_len=self.cache_len,
+                                   backend=self.backend)
+        self.prefills += 1
+        with spans.span("serve.splice"):
+            _splice(self.caches, fresh, i)
+        with spans.span("serve.first_token"):
+            req.out_tokens.append(int(torch.argmax(logits[0])))
+        # the prefill's argmax IS the first token: TTFT closes here
+        self.clock.advance(self.cost.prefill_s(len(req.prompt)))
+        req.first_token_at = self.clock.now
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "serve.ttft_s", unit="s",
+                help="time to first token (submit -> prefill "
+                     "argmax)").record(
+                req.first_token_at - req.submitted_at)
+        self.active[i] = req
+        self.pos[i] = len(req.prompt)
+        # the prefill produced the prompt's KV: ship it onto the
+        # sidecar's PIM pages once, decode grows it in place
+        if self._kv is not None:
+            self.pim_offload.kv_prefill(req.uid, len(req.prompt))
 
     def _retire(self, i: int):
         req = self.active[i]
@@ -321,59 +319,51 @@ class Server:
         decode, retire; count the iteration against the step deadline.
         With a span recorder the iteration is one ``serve.step`` span."""
         rec = self.spans
-        if rec is None:
-            return self._step(None)
-        sid = rec.open("serve.step")
-        try:
-            return self._step(rec)
-        finally:
-            rec.close(sid)
+        with spans.NULL if rec is None else rec.span("serve.step"):
+            return self._step()
 
-    def _step(self, rec: Optional[SpanRecorder]):
+    def _step(self):
         track_wall = self.metrics is not None \
             or self.step_deadline_s is not None
         t0 = time.perf_counter() if track_wall else 0.0
         self._iter += 1
         self._apply_serve_faults()
-        self._admit(rec)
+        self._admit()
         live = [i for i in range(self.slots) if self.active[i] is not None]
         if not live:
             # backing-off requests still count as pending work
             return bool(self.queue)
-        if rec is not None:
-            sid = rec.open("serve.decode",
-                           positions=[int(self.pos[i]) for i in live])
-            mask = torch.zeros(self.slots, dtype=torch.bool)
-            mask[live] = True
-            rec.live = mask.to(self.device)
-        toks = np.zeros((self.slots, 1), np.int64)
-        for i in live:
-            toks[i, 0] = self.active[i].out_tokens[-1]
-        logits, self.caches = lm.decode_step(
-            self.params, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(self.pos.astype(np.int64)).to(self.device),
-            self.caches, self.cfg, backend=self.backend)
-        if rec is not None:
-            rec.live = None
-        self.decode_steps += 1
-        rec_off = None
-        if self.pim_offload is not None:
-            rec_off = self.pim_offload.step(
-                len(live),
-                request_ids=[self.active[i].uid for i in live])
-        # the decode iteration's virtual duration: the PIM step's clocked
-        # makespan when a sidecar ran it, else the host decode roofline
-        self.clock.advance(rec_off.pim_s if rec_off is not None
-                           else self.cost.decode_step_s(len(live)))
-        if rec is not None:
-            sub = rec.open("serve.wait")
-        nxt = torch.argmax(logits, -1).cpu().numpy()
-        if rec is not None:
-            rec.close(sub)
-            rec.close(sid)
-            # on serve.step; an admitted request is live: its first two
-            # tokens are here
-            rec.note(uids=[self.active[i].uid for i in live])
+        with spans.span("serve.decode",
+                        positions=[int(self.pos[i]) for i in live]) as rec:
+            if rec:             # the live rows, for moe.py's counters
+                mask = torch.zeros(self.slots, dtype=torch.bool)
+                mask[live] = True
+                rec.live = mask.to(self.device)
+            toks = np.zeros((self.slots, 1), np.int64)
+            for i in live:
+                toks[i, 0] = self.active[i].out_tokens[-1]
+            logits, self.caches = lm.decode_step(
+                self.params, torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(self.pos.astype(np.int64)).to(self.device),
+                self.caches, self.cfg, backend=self.backend)
+            if rec:
+                rec.live = None
+            self.decode_steps += 1
+            rec_off = None
+            if self.pim_offload is not None:
+                rec_off = self.pim_offload.step(
+                    len(live),
+                    request_ids=[self.active[i].uid for i in live])
+            # the decode iteration's virtual duration: the PIM step's
+            # clocked makespan when a sidecar ran it, else the host decode
+            # roofline
+            self.clock.advance(rec_off.pim_s if rec_off is not None
+                               else self.cost.decode_step_s(len(live)))
+            with spans.span("serve.wait"):
+                nxt = torch.argmax(logits, -1).cpu().numpy()
+        # on serve.step; an admitted request is live: its first two tokens
+        # are here
+        spans.note(uids=[self.active[i].uid for i in live])
         for i in live:
             req = self.active[i]
             req.out_tokens.append(int(nxt[i]))
@@ -381,11 +371,8 @@ class Server:
             hit_eos = self.eos_id is not None and int(nxt[i]) == self.eos_id
             if (len(req.out_tokens) >= req.max_new or hit_eos
                     or int(self.pos[i]) >= self.cache_len - 1):
-                if rec is not None:
-                    sub = rec.open("serve.retire")
-                self._retire(i)
-                if rec is not None:
-                    rec.close(sub)
+                with spans.span("serve.retire"):
+                    self._retire(i)
         if track_wall:
             wall = time.perf_counter() - t0
             if self.step_deadline_s is not None \

@@ -144,10 +144,19 @@ def constrain(x, *logical):
             if x.shape[dim] % ax_size != 0:
                 r = None
         resolved.append(r)
-    pl = placements(P(*resolved), mesh)
-    if list(x.placements) == pl:
-        return x
-    return x.redistribute(mesh, pl)
+    return placed(x, mesh, placements(P(*resolved), mesh))
+
+
+def placed(t: torch.Tensor, mesh: DeviceMesh, pl: Optional[List] = None
+           ) -> DTensor:
+    """``t`` as a DTensor on ``mesh`` (a plain tensor taken as replicated),
+    redistributed to the placements ``pl`` where given and different."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if pl is None or list(t.placements) == pl:
+        return t
+    return t.redistribute(mesh, pl)
 
 
 class NamedSharding(NamedTuple):
@@ -185,10 +194,7 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     ins, out = eq.replace(" ", "").split("->")
     terms = ins.split(",")
     mesh = next(x for x in operands if isinstance(x, DTensor)).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    xs = [x if isinstance(x, DTensor)
-          else DTensor.from_local(x, mesh, rep, run_check=False)
-          for x in operands]
+    xs = [placed(x, mesh) for x in operands]
     batch = set(out).intersection(*map(set, terms))
     contracted = set.intersection(*map(set, terms)) - set(out)
     in_pl = [[] for _ in xs]
@@ -209,8 +215,7 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
                               else p)
         out_pl.append(Shard(out.index(pick)) if pick in out
                       else Partial() if pick in contracted else Replicate())
-    xs = [x if list(x.placements) == pl else x.redistribute(mesh, pl)
-          for x, pl in zip(xs, in_pl)]
+    xs = [placed(x, mesh, pl) for x, pl in zip(xs, in_pl)]
     fn = local_map(lambda *a: torch.einsum(eq, *a), out_placements=out_pl,
                    in_placements=tuple(in_pl),
                    in_grad_placements=tuple(grad_pl), device_mesh=mesh)

@@ -18,7 +18,6 @@ kernels, and memory.
 import contextlib
 import gc
 import sys
-import types
 import weakref
 from pathlib import Path
 
@@ -192,16 +191,15 @@ class _Kernel:
         if out is None:
             out = torch.empty_like(x)
         out.copy_(2 * x * scale + 1)
-        rec = spans.ACTIVE
-        if rec is not None:
-            rec.launch("k1", x.shape[0], x.shape[1], x.shape[1], 4, 4)
+        spans.record_launch("k1", x.shape[0], x.shape[1], x.shape[1], 4, 4)
         return out
 
 
 @pytest.fixture
 def fake_card(monkeypatch):
     """The graph engaged for plain CPU tensors, over stand-ins for the
-    CUDA graph, stream and pool API; yields the kernels' owner."""
+    CUDA graph, stream and pool API, with a fake kernel ``k`` set on
+    ``ops``."""
     monkeypatch.setattr(dg, "engages", lambda ts: all(
         type(t) is torch.Tensor and not t.requires_grad for t in ts))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
@@ -211,10 +209,10 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.Tensor, "record_stream", lambda t, s: None)
     monkeypatch.setattr(_FakeGraph, "made", [])
-    return types.SimpleNamespace(k=_Kernel())
+    monkeypatch.setattr(ops, "k", _Kernel(), raising=False)
 
 
-def _body(owner):
+def _body():
     """A synthetic decode step: an embedding, a launch, a cache update
     that reads the positions, two launches back to back (an empty piece
     between them), and a launch that returns the logits, with a cache
@@ -222,14 +220,14 @@ def _body(owner):
     def body(params, tokens, positions, caches, cfg, backend):
         h = torch.empty(tokens.shape[0], 4)
         _op(lambda t, w, o: o.copy_(w[t[:, 0]]), tokens, params["w"], h)
-        y = ops.launch(owner, "k", h)
+        y = ops.launch("k", h)
         _op(lambda c, a, p: c.add_(a + p[:, None]), caches["c"], y,
             positions)
-        z = ops.launch(owner, "k", caches["c"], scale=0.5)
-        z = ops.launch(owner, "k", z)
+        z = ops.launch("k", caches["c"], scale=0.5)
+        z = ops.launch("k", z)
         u = torch.empty_like(z)
         _op(lambda a, b, o: torch.mul(a, b, out=o), z, params["w"][:1], u)
-        return ops.launch(owner, "k", u)
+        return ops.launch("k", u)
     return body
 
 
@@ -240,8 +238,8 @@ def _synthetic(b=2):
     return params, caches
 
 
-def _run(owner, params, tokens, positions, caches):
-    return dg.run(_body(owner), params, tokens, positions, caches, "cfg",
+def _run(params, tokens, positions, caches):
+    return dg.run(_body(), params, tokens, positions, caches, "cfg",
                   "kernel")
 
 
@@ -255,13 +253,12 @@ def test_a_step_is_pieces_and_launches_in_turn(fake_card):
     """The capturing call: pieces and launches alternate, the empty piece
     between two back-to-back launches is dropped, each piece is replayed
     once as it is captured, and the call computes the eager step."""
-    owner = fake_card
     params, caches = _synthetic()
     tokens, positions = _tokens(0)
-    _run(owner, params, tokens, positions, caches)
+    _run(params, tokens, positions, caches)
     mine = _clone(caches)
-    want = _body(owner)(params, tokens, positions, mine, None, None)
-    got = _run(owner, params, tokens, positions, caches)
+    want = _body()(params, tokens, positions, mine, None, None)
+    got = _run(params, tokens, positions, caches)
     assert torch.equal(got, want) and torch.equal(caches["c"], mine["c"])
     g = _graph_of(caches)
     kinds = ["launch" if isinstance(s, tuple) else "piece" for s in g.steps]
@@ -276,17 +273,16 @@ def test_replays_equal_eager_steps(fake_card):
     """Steps over new tokens and positions: each replay's logits and
     caches equal the same call on cloned caches (new buffers: eager), and
     the counters split the calls eager, capture, replays."""
-    owner = fake_card
     params, caches = _synthetic(3)
     rises = []
     for i in range(6):
         tokens, positions = _tokens(i, 3)
         mine = _clone(caches)
         before = _counters()
-        want = _run(owner, params, tokens, positions, mine)
+        want = _run(params, tokens, positions, mine)
         assert _rise(before) == (1, 0, 0)
         before = _counters()
-        got = _run(owner, params, tokens, positions, caches)
+        got = _run(params, tokens, positions, caches)
         rises.append(_rise(before))
         assert torch.equal(got, want), i
         assert torch.equal(caches["c"], mine["c"]), i
@@ -299,11 +295,10 @@ def test_a_replay_launches_through_the_wrapper_in_the_kernels_place(
     launch of a replay, in order, each writing into the tensor the
     capture's launch returned; the graph holds aliases of the launches'
     tensors, never the cache tensor itself."""
-    owner = fake_card
     params, caches = _synthetic()
     tokens, positions = _tokens(0)
     for _ in range(2):
-        _run(owner, params, tokens, positions, caches)
+        _run(params, tokens, positions, caches)
     g = _graph_of(caches)
     captured = [s for s in g.steps if isinstance(s, tuple)]
     seen = []
@@ -312,36 +307,34 @@ def test_a_replay_launches_through_the_wrapper_in_the_kernels_place(
         out = _Kernel()(x, **kw)
         seen.append((x.data_ptr(), kw))
         return out
-    owner.k = wrapper
-    _run(owner, params, *_tokens(1), caches)
-    assert [(x.data_ptr(), kw) for _, _, (x,), kw in captured] == seen
+    ops.k = wrapper
+    _run(params, *_tokens(1), caches)
+    assert [(x.data_ptr(), kw) for _, (x,), kw in captured] == seen
     assert all(kw["out"].data_ptr() == o.data_ptr()
-               for (_, kw), o in zip(seen, [s[3]["out"] for s in captured]))
+               for (_, kw), o in zip(seen, [s[2]["out"] for s in captured]))
     assert seen[1][1]["scale"] == 0.5
-    assert all(a is not caches["c"] for _, _, args, _ in captured
+    assert all(a is not caches["c"] for _, args, _ in captured
                for a in args)
 
 
 def test_logits_returned_are_never_overwritten(fake_card):
-    owner = fake_card
     params, caches = _synthetic()
     outs = []
     for i in range(4):
-        lg = _run(owner, params, *_tokens(i), caches)
+        lg = _run(params, *_tokens(i), caches)
         outs.append((lg, lg.clone()))
     assert all(torch.equal(a, b) for a, b in outs)
     assert len({id(a) for a, _ in outs}) == 4
 
 
 def test_new_buffers_start_eager(fake_card):
-    owner = fake_card
     params, caches = _synthetic()
     before = _counters()
-    _run(owner, params, *_tokens(0), caches)
-    _run(owner, params, *_tokens(0), _clone(caches))
-    _run(owner, params, *_tokens(0), caches)
+    _run(params, *_tokens(0), caches)
+    _run(params, *_tokens(0), _clone(caches))
+    _run(params, *_tokens(0), caches)
     tokens, positions = _tokens(0)
-    _run(owner, params, tokens, positions.int(), caches)  # another dtype
+    _run(params, tokens, positions.int(), caches)  # another dtype
     assert _rise(before) == (3, 1, 0)
 
 
@@ -351,13 +344,12 @@ def test_a_recorder_is_active_for_the_launches_and_not_in_the_pieces(
     piece: :func:`_op` checks it) and replays, its span noted
     ``graph: "capture"`` then ``"replay"``, with the launch records of an
     eager step's launches in each; the recorder is active again after."""
-    owner = fake_card
     params, caches = _synthetic()
     rec = SpanRecorder()
     sid = rec.open("serve.step")
     for i in range(4):
         s = rec.open("model.decode_step")
-        _run(owner, params, *_tokens(i), caches)
+        _run(params, *_tokens(i), caches)
         rec.close(s)
         assert spans.ACTIVE is rec
     rec.close(sid)
@@ -371,12 +363,11 @@ def test_a_recorder_is_active_for_the_launches_and_not_in_the_pieces(
 def test_a_graph_goes_with_its_buffers(fake_card):
     """Freeing the caches drops their graph and its entry, though a
     launch of the step reads a cache tensor: the graph holds an alias."""
-    owner = fake_card
     gc.collect()
     seen = set(dg._ENTRIES)
     params, caches = _synthetic()
     for i in range(3):
-        _run(owner, params, *_tokens(i), caches)
+        _run(params, *_tokens(i), caches)
     mine = set(dg._ENTRIES) - seen
     assert len(mine) == 1
     g = weakref.ref(dg._ENTRIES[next(iter(mine))].graph)
@@ -390,62 +381,63 @@ def test_a_body_that_raises_mid_capture_leaves_no_split(fake_card):
     """A step that raises while it is captured ends the open piece, takes
     the hand-off back and restores the recorder; the next call captures
     again."""
-    owner = fake_card
     params, caches = _synthetic()
-    _run(owner, params, *_tokens(0), caches)
+    _run(params, *_tokens(0), caches)
 
     def boom(x, **kw):
         raise RuntimeError("launch failed")
-    owner.k = boom
+    ops.k = boom
     with pytest.raises(RuntimeError, match="launch failed"):
-        _run(owner, params, *_tokens(0), caches)
+        _run(params, *_tokens(0), caches)
     assert ops.split is None and _FakeGraph.capturing is None
     assert spans.ACTIVE is None
-    owner.k = _Kernel()
+    ops.k = _Kernel()
     before = _counters()
-    _run(owner, params, *_tokens(1), caches)
+    _run(params, *_tokens(1), caches)
     assert _rise(before) == (0, 1, 0)
 
 
 def test_launch_calls_the_module_attribute_or_hands_it_off(monkeypatch):
-    """``ops.launch`` calls ``owner.name`` as it is at the call, and
+    """``ops.launch`` calls ``ops.<name>`` as it is at the call, and
     hands the launch to ``ops.split`` while one is set; ``ops.gemm``
     launches K1 through it on card tensors and takes the plain product
     on the CPU."""
-    owner = types.SimpleNamespace(k=lambda x, **kw: ("k", x, kw))
-    assert ops.launch(owner, "k", 1, a=2) == ("k", 1, {"a": 2})
+    monkeypatch.setattr(ops, "k", lambda x, **kw: ("k", x, kw),
+                        raising=False)
+    assert ops.launch("k", 1, a=2) == ("k", 1, {"a": 2})
+    monkeypatch.setattr(ops, "k", lambda x, **kw: ("k2", x, kw))
+    assert ops.launch("k", 1, a=2) == ("k2", 1, {"a": 2})
     handed = []
     monkeypatch.setattr(ops, "split", lambda *a: handed.append(a) or "x")
-    assert ops.launch(owner, "k", 1, a=2) == "x"
-    assert handed == [(owner, "k", (1,), {"a": 2})]
+    assert ops.launch("k", 1, a=2) == "x"
+    assert handed == [("k", (1,), {"a": 2})]
     a, b = torch.randn(3, 4), torch.randn(4, 5)
     assert torch.equal(ops.gemm(a, b, use_kernel=True), ref.gemm(a, b))
     assert len(handed) == 1
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     ops.gemm(a, b, use_kernel=True, out_dtype=torch.bfloat16, block_m=64)
-    assert handed[1] == (sys.modules[ops.__name__], "ame_gemm", (a, b),
+    assert handed[1] == ("ame_gemm", (a, b),
                          {"out_dtype": torch.bfloat16, "block_m": 64})
 
 
 def test_the_decode_route_hands_its_launch_to_the_split(monkeypatch):
     """The decode attention kernel is launched through ``ops.launch``
-    under the attention module's name, so a capture takes it out of its
-    pieces."""
+    by its name, so a capture takes it out of its pieces."""
     from repro_torch.models import attention
     cfg = get("qwen3-1.7b").reduced()
     params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     caches, nxt, pos = _prefilled(cfg, params, 2, 16, "cpu")
     handed = []
 
-    def split(owner, name, args, kw):
-        handed.append((owner, name))
+    def split(name, args, kw):
+        handed.append(name)
         q, k, v, kpos, qpos = args
         return attention.chunked_attention(q, k, v, causal=True,
                                            q_offset=qpos, kv_positions=kpos)
     monkeypatch.setattr(attention, "takes_decode_kernel", lambda *t: True)
     monkeypatch.setattr(ops, "split", split)
     lm.decode_step(params, nxt, pos, caches, cfg)
-    assert handed == [(attention, "decode_attention")] * cfg.n_layers
+    assert handed == ["decode_attention"] * cfg.n_layers
 
 
 def _serve(cfg, params, device, spans_after=None):
@@ -694,7 +686,7 @@ def test_replays_count_every_launch_on_the_card(cuda, reduced_bf16):
     assert tuple(a - b for a, b in zip(counts(), c0)) \
         == tuple(6 * n for n in step)
     g = _graph_of(caches)
-    launched = [s[1] for s in g.steps if isinstance(s, tuple)]
+    launched = [s[0] for s in g.steps if isinstance(s, tuple)]
     assert launched.count("ame_gemm") == step[0]
     assert launched.count("decode_attention") == step[3]
     assert len(g.steps) - len(launched) < len(launched)

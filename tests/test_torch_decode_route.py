@@ -18,6 +18,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get
+from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models import model as lm
 
@@ -64,7 +65,7 @@ def _decode(name, monkeypatch, on_cuda):
         return plain(q, k, v, causal=True, q_offset=pos, kv_positions=kpos)
 
     monkeypatch.setattr(attention, "chunked_attention", spy)
-    monkeypatch.setattr(attention, "decode_attention", stand_in)
+    monkeypatch.setattr(ops, "decode_attention", stand_in)
     monkeypatch.setattr(attention, "takes_decode_kernel",
                         lambda *t: on_cuda)
     pos = torch.full((2,), PROMPT_T)

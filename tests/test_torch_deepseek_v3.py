@@ -213,9 +213,9 @@ def _served_logits(cfg_dict, w, prompts, max_new, slots):
                 for u, p in enumerate(prompts)]
         orig_admit = srv._admit
 
-        def admit(rec=None):        # slots fill in order, one prefill each
+        def admit():        # slots fill in order, one prefill each
             before = {r.uid for r in srv.active if r is not None}
-            orig_admit(rec)
+            orig_admit()
             for r in srv.active:
                 if r is not None and r.uid not in before:
                     logits[r.uid] = [box["prefills"].pop(0)]

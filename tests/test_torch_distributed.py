@@ -297,6 +297,7 @@ def _port_rank(rank, world, port, work):
     import contextlib
     from unittest import mock
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
     from repro_torch.models import attention
     handed = []
 
@@ -349,7 +350,7 @@ def _port_rank(rank, world, port, work):
                     patches.enter_context(mock.patch.object(
                         attention, "takes_decode_kernel", lambda *t: True))
                     patches.enter_context(mock.patch.object(
-                        attention, "decode_attention", stand_in))
+                        ops, "decode_attention", stand_in))
                 res["serve"][f"{tp}-{route}"] = {
                     **serve_steps(cfg, params, tok, backend),
                     "handed": list(handed)}

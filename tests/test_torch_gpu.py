@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import ame_gemm as k1
 from repro_torch.kernels import attention as k3
 from repro_torch.kernels import elementwise as k2
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import ssd_scan as k4
 from repro_torch.launch import hw
 
@@ -143,7 +143,8 @@ def test_unaligned_shapes_take_the_general_kernel(cuda, dtype):
 
 
 def test_mma_smem_claim_matches_the_source_and_fits(cuda):
-    fn = k1._fn("ame_gemm_mma_smem_bytes")
+    fn = _build.entry("ame_gemm", "ame_gemm_mma_smem_bytes",
+                      k1.SMEM_ARGTYPES)
     for blocks in k1.MMA_BLOCKS:
         assert fn(*blocks) == k1.smem_bytes(*blocks, kind="mma")
         assert fn(*blocks) <= hw.SMEM_PER_BLOCK
@@ -392,7 +393,7 @@ def test_ssd4_mma_on_zamba2_serve_views(cuda, bsz, t):
 
 
 def test_ssd_smem_claim_matches_the_source_and_fits(cuda):
-    fn = k4._fn("ssd_scan_smem_bytes")
+    fn = _build.entry("ssd_scan", "ssd_scan_smem_bytes", k4.SMEM_ARGTYPES)
     for l, n in ((128, 128), (64, 128), (16, 4), (100, 24), (37, 128),
                  (256, 64)):
         assert fn(0, l, n, 0) == k4.smem_bytes(l, n, variant="fma")
@@ -637,15 +638,15 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_attention_smem_claim_matches_the_source_and_fits(cuda):
-    lib = k3._lib()
+    fn = _build.entry("flash_attention", "flash_attention_smem_bytes",
+                      k3.SMEM_ARGTYPES)
     for dtype, code in k3.DTYPE_CODES.items():
         for bq, bk in k3.blocks_for(dtype):
             for d in (7, 32, 64, 80, 128, 192, 256):
-                assert lib.flash_attention_smem_bytes(bq, bk, d, code) == \
-                    k3.smem_bytes(bq, bk, d, dtype)
+                assert fn(bq, bk, d, code) == k3.smem_bytes(bq, bk, d, dtype)
                 assert k3.smem_bytes(bq, bk, d, dtype) <= hw.SMEM_PER_BLOCK
-    assert lib.flash_attention_smem_bytes(64, 64, 257, 0) == 0
-    assert lib.flash_attention_smem_bytes(16, 16, 64, 1) == 0
+    assert fn(64, 64, 257, 0) == 0
+    assert fn(16, 16, 64, 1) == 0
 
 
 # ---------------------------------------------------------------------------

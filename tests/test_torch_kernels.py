@@ -6,6 +6,9 @@ held against JAX's ``ref.gemm`` and the Pallas ``ame_gemm`` in interpret
 mode.  The CUDA kernel itself runs only on the card
 (tests/test_torch_gpu.py).
 """
+import ctypes
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,6 +161,33 @@ def test_kernel_wrapper_refuses_cpu_tensors(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: pytest.fail("loaded"))
     with pytest.raises(ValueError, match="CUDA"):
         k1.ame_gemm(torch.randn(4, 4), torch.randn(4, 4))
+
+
+def test_entry_binds_once_per_library_and_symbol(monkeypatch):
+    """``_build.entry`` binds each (library, symbol) once, with its
+    argtypes and a ``c_int`` result, on the library ``load`` gives;
+    ``_build.launch_error`` is the wrappers' error for a failed launch."""
+    libs, loaded = {}, []
+
+    def load(name):
+        loaded.append(name)
+        return libs.setdefault(name, types.SimpleNamespace(
+            f=types.SimpleNamespace(), g=types.SimpleNamespace()))
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    argtypes = [ctypes.c_void_p, ctypes.c_int]
+    f = _build.entry("fake", "f", argtypes)
+    assert f is libs["fake"].f
+    assert f.argtypes == argtypes and f.restype is ctypes.c_int
+    assert _build.entry("fake", "f", argtypes) is f
+    assert _build.entry("fake", "g", [ctypes.c_int]) is libs["fake"].g
+    assert _build.entry("other", "f", argtypes) is libs["other"].f
+    assert _build.entry("fake", "g", [ctypes.c_int]) is libs["fake"].g
+    assert loaded == ["fake", "fake", "other"]
+    err = _build.launch_error(700, "ame_gemm mma", "(m,k,n)=(1, 2, 3)")
+    assert isinstance(err, RuntimeError)
+    assert str(err) == ("ame_gemm mma launch failed: cudaError 700 at "
+                        "(m,k,n)=(1, 2, 3)")
 
 
 def test_build_lists_the_kernel_sources():

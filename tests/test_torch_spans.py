@@ -279,6 +279,38 @@ def test_decode_attention_records_carry_their_fields():
                       b=32, hkv=8, g=2, d=128, clen=1312, in_bytes=2)
 
 
+def test_span_is_the_shared_null_when_off_and_closes_on_a_raise():
+    """With no recorder ``spans.span`` returns the shared ``NULL`` (bound
+    to None) and ``note`` / ``record_launch`` record nothing; under one,
+    a raise inside a span closes it and leaves the span around it open."""
+    assert spans.ACTIVE is None
+    assert spans.span("model.mlp") is spans.NULL
+    assert spans.span("serve.decode", positions=[3]) is spans.NULL
+    with spans.span("model.mlp") as rec:
+        assert rec is None
+        spans.note(x=1)
+        spans.record_launch("k1", 1, 2, 3, 2, 2)
+    rec = SpanRecorder()
+    with rec.span("serve.step") as got:
+        assert got is rec and spans.ACTIVE is rec
+        with pytest.raises(RuntimeError, match="planted"):
+            with spans.span("model.prefill", n=1) as inner:
+                assert inner is rec
+                spans.note(k=2)
+                spans.record_launch("k1", 1, 2, 3, 2, 2)
+                raise RuntimeError("planted")
+        assert spans.ACTIVE is rec
+        ss = rec.records()["spans"]
+        assert ss[1]["end_ns"] is not None and ss[0]["end_ns"] is None
+    assert spans.ACTIVE is None
+    got = rec.records()
+    assert [(s["name"], s["parent"], s["attrs"]) for s in got["spans"]] \
+        == [("serve.step", None, {}), ("model.prefill", 0, {"n": 1, "k": 2})]
+    assert got["spans"][0]["end_ns"] is not None
+    assert [(ln["kernel"], ln["span"]) for ln in got["launches"]] \
+        == [("k1", 1)]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -73,19 +73,20 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
 def micro_ns(n: int = 20000):
-    """ns per open/close pair and per launch record, on this host."""
-    from repro_torch.obs import SpanRecorder
+    """ns per span (``with spans.span``) and per launch record
+    (``spans.record_launch``) under an active recorder, on this host."""
+    from repro_torch.obs import SpanRecorder, spans
     rec = SpanRecorder()
-    top = rec.open("serve.step")
-    t = time.perf_counter_ns()
-    for _ in range(n):
-        rec.close(rec.open("model.attention"))
-    span = (time.perf_counter_ns() - t) / n
-    t = time.perf_counter_ns()
-    for _ in range(n):
-        rec.launch("k1", 32, 2048, 2048, 2, 2)
-    launch = (time.perf_counter_ns() - t) / n
-    rec.close(top)
+    with rec.span("serve.step"):
+        t = time.perf_counter_ns()
+        for _ in range(n):
+            with spans.span("model.attention"):
+                pass
+        span = (time.perf_counter_ns() - t) / n
+        t = time.perf_counter_ns()
+        for _ in range(n):
+            spans.record_launch("k1", 32, 2048, 2048, 2, 2)
+        launch = (time.perf_counter_ns() - t) / n
     return {"span": span, "launch": launch}
 
 
