@@ -65,6 +65,19 @@ Phases (any failure exits non-zero and prints no result line):
              chunked_attention, scaled_dot_product_attention over the whole
              cache (the library yardstick, never called by the port) and
              the bound: the live K and V bytes at 3.35 TB/s.
+6c. MLA decode — the port's MLA decode kernel (kernels/mla_decode.py)
+             against its plain version (cat + chunked_attention, as MLA's
+             decode branch computes it on CPU tensors) at the cell
+             deepseek-v3.chat-64's step (64 slots of 1,312 positions, 128
+             heads, widths 512 + 64, live positions drawn from the chat
+             traffic's lengths), a short cache and the reduced widths
+             (32 + 16), within one bf16 ulp of the output's scale; the
+             cell's step timed on the device and with events, by host µs
+             a call, beside the plain version, chunked_attention alone on
+             a concatenated cache, scaled_dot_product_attention with the
+             heads as the queries of one KV head (the library yardstick)
+             and the bound: the live latents, qq and o at 3.35 TB/s, or
+             the score and value FLOPs at 989 TFLOP/s, the larger.
 7. engine  — quickstart part 1 through repro_torch.core on the card: mfadd,
              mfsub, mfmax refused, mfmacc, the modeled Aquabolt-XL headline
              (59.4 FLOP/cycle, 14.9 GFLOP/s, 256 launches); the batched
@@ -105,7 +118,8 @@ Phases (any failure exits non-zero and prints no result line):
              32 K1 launches per forward each (mixtral 8 x 4 attention
              projections; deepseek 3 x 8 dense-layer and 1 x 8 MoE-layer
              projections), every K1 launch of every serve on its mma
-             variant.  One prompt's prefill logits are held against
+             variant; deepseek's decode steps launch the MLA decode kernel
+             once a layer.  One prompt's prefill logits are held against
              ``backend="torch"`` (for the MoE models with the share of
              (token, layer) expert choices the two backends agree on); a
              warm decode step (and, for mamba and zamba2, a 300-token
@@ -231,6 +245,15 @@ DECODE_ATTN_CASES = [("chat", 32, 1312, 8, 2, 128),
 #: distinct caches the timed decode attention cycles through, as the 28
 #: layers of a step do: 4 x 172 MB, past the 50 MB L2
 DECODE_ATTN_LAYERS = 4
+#: MLA's decode kernel: (name, b, clen, h, r, rd), the cell
+#: deepseek-v3.chat-64's step first (timed), then a short cache and the
+#: reduced configurations' widths
+MLA_DECODE_CASES = [("deepseek-v3.chat-64", 64, 1312, 128, 512, 64),
+                    ("short cache", 8, 64, 128, 512, 64),
+                    ("reduced", 3, 90, 4, 32, 16)]
+#: distinct latent caches the timed MLA kernel cycles through, as the 11
+#: layers of the cell's step do: 3 x 97 MB, past the 50 MB L2
+MLA_DECODE_LAYERS = 3
 #: K2 at the model shapes: the AME max tile in FP16 (cost.max_tile_mfmacc)
 #: and a bf16 pair of 128 MiB operands, past the 50 MB L2
 K2_MODEL_CASES = [((128, 4096), "float16"), ((8192, 8192), "bfloat16")]
@@ -1134,7 +1157,7 @@ def phase_decode_attention(dev):
             # the keys each slot sees, built once outside the timing
             lib_args = [(q, k, v, ((kpos >= 0) & (kpos <= pos[:, None]))[
                 :, None, None, :]) for q, k, v, kpos, pos in args]
-            lib = sdpa(*lib_args[0]).transpose(1, 2).float()
+            lib = sdpa(*lib_args[0]).float()
             lib_err = float((lib - want).abs().max())
             rec.update(
                 ms=timed_ms(kd.decode_attention, args, 40),
@@ -1164,6 +1187,107 @@ def phase_decode_attention(dev):
     if bad:
         raise AssertionError(f"the decode attention kernel disagrees with "
                              f"chunked_attention: {bad}")
+    return records
+
+
+def mla_decode_bound_ms(b, h, r, rd, live):
+    """The least time of MLA's decode attention over ``live`` keys in all:
+    each live latent (r + rd bf16) read once, qq read and o written once,
+    against 2 h (2 r + rd) FLOPs a key; the larger of the two at the
+    card's peaks.  Returns (ms, what bounds it)."""
+    from repro_torch.launch import hw
+    nbytes = 2 * (live * (r + rd) + b * h * (r + rd) + b * h * r)
+    flops = 2 * h * (2 * r + rd) * live
+    by_bytes, by_flops = nbytes / hw.HBM_BW, flops / hw.PEAK_FLOPS
+    return 1e3 * max(by_bytes, by_flops), \
+        "bytes" if by_bytes >= by_flops else "operations"
+
+
+def phase_mla_decode(dev):
+    """MLA's decode kernel against its plain version (one bf16 ulp of the
+    output's scale); the cell's step timed.  Returns records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_decode as km
+    from repro_torch.models.attention import chunked_attention
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(b, clen, h, r, rd, positions):
+        qq = torch.randn(b, 1, h, r + rd, generator=gen, device=dev)
+        ckv = torch.randn(b, clen, r, generator=gen, device=dev)
+        kr = torch.randn(b, clen, rd, generator=gen, device=dev)
+        return (qq.bfloat16(), ckv.bfloat16(), kr.bfloat16(),
+                torch.as_tensor(positions, dtype=torch.long, device=dev))
+
+    def chunked(qq, kk, ckv, pos):
+        return chunked_attention(qq, kk, ckv[:, :, None, :], causal=True,
+                                 q_offset=pos)
+
+    def sdpa(qq, kk, ckv, keep):
+        # the heads as the queries of one KV head, the live keys by a mask
+        return F.scaled_dot_product_attention(
+            qq, kk.transpose(1, 2), ckv[:, None], attn_mask=keep)
+
+    records, bad = [], []
+    for name, b, clen, h, r, rd in MLA_DECODE_CASES:
+        positions = [min(p, clen - 1) for p in chat_positions(b, b + r)]
+        args = [inputs(b, clen, h, r, rd, positions) for _ in range(
+            MLA_DECODE_LAYERS if name == "deepseek-v3.chat-64" else 1)]
+        got = km.mla_decode(*args[0])
+        torch.cuda.synchronize()
+        want = km.plain(*args[0]).float()
+        err = float((got.float() - want).abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+        ok = err <= ulp and got.shape == want.shape
+        live = sum(min(p + 1, clen) for p in positions)
+        blocks = -(-h // km.ROWS)
+        rec = dict(kind=name, b=b, clen=clen, h=h, r=r, rd=rd,
+                   live_keys=live, max_abs_err=err, ulp=ulp, ok=ok)
+        line = (f"[mla_decode] {name:19s} (b,clen,h,r,rd)="
+                f"{(b, clen, h, r, rd)} bf16, {live} live keys of "
+                f"{b * clen}: max_abs_err={err:.3g} (one bf16 ulp "
+                f"{ulp:.3g}) {'ok' if ok else 'FAIL'}")
+        if name == "deepseek-v3.chat-64":
+            cat_args = [(qq, torch.cat([ckv, kr], -1)[:, :, None, :], ckv,
+                         pos) for qq, ckv, kr, pos in args]
+            lib_args = [(qq, kk, ckv, (torch.arange(clen, device=dev)[None]
+                                       <= pos[:, None])[:, None, None, :])
+                        for qq, kk, ckv, pos in cat_args]
+            lib = sdpa(*lib_args[0]).float()
+            lib_err = float((lib - want).abs().max())
+            bound, by = mla_decode_bound_ms(b, h, r, rd, live)
+            rec.update(
+                ms=timed_ms(km.mla_decode, args, 30),
+                plain_ms=timed_ms(km.plain, args, 6),
+                chunked_ms=timed_ms(chunked, cat_args, 6),
+                library_ms=timed_ms(sdpa, lib_args, 10),
+                device_ms=device_ms(km.mla_decode, args, 30),
+                plain_device_ms=device_ms(km.plain, args, 6),
+                library_device_ms=device_ms(sdpa, lib_args, 10),
+                host_us=host_us(km.mla_decode, args, 30),
+                plain_host_us=host_us(km.plain, args, 6),
+                library_max_abs_err=lib_err, bound_ms=bound, bound_by=by)
+            split_len, nsplit = km.splits(b, blocks, clen)
+            line += (f" | device: kernel {rec['device_ms']:.4f} ms, plain "
+                     f"{rec['plain_device_ms']:.4f} ms, sdpa "
+                     f"{rec['library_device_ms']:.4f} ms | events: kernel "
+                     f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                     f"chunked_attention alone {rec['chunked_ms']:.4f} ms, "
+                     f"sdpa {rec['library_ms']:.4f} ms (max_abs_err "
+                     f"{lib_err:.3g} vs plain) | host: kernel "
+                     f"{rec['host_us']:.1f} us, plain "
+                     f"{rec['plain_host_us']:.1f} us a call | bound "
+                     f"{bound:.4f} ms ({by}), kernel at "
+                     f"{100 * bound / rec['device_ms']:.1f} % | {nsplit} "
+                     f"splits of {split_len} keys")
+        log(line)
+        records.append(rec)
+        if not ok:
+            bad.append(rec)
+    if bad:
+        raise AssertionError(f"the MLA decode kernel disagrees with its "
+                             f"plain version: {bad}")
     return records
 
 
@@ -1495,13 +1619,21 @@ def fill_lora(params, gen):
 def decode_attention_layers(cfg):
     """The decode attention kernel's launches a decode step: one per
     window-free GQA attention layer (qwen3's 28, zamba2's 9 shared-block
-    applications); a sliding window (mixtral) and MLA (deepseek) keep
-    chunked_attention, and a Mamba2 layer has no attention."""
+    applications); a sliding window (mixtral) keeps chunked_attention, MLA
+    (deepseek) takes its own kernel (:func:`mla_decode_layers`), and a
+    Mamba2 layer has no attention."""
     if cfg.sliding_window or cfg.mla is not None:
         return 0
     if cfg.hybrid is not None:
         return cfg.n_layers // cfg.hybrid.shared_every
     return 0 if cfg.ssm is not None else cfg.n_layers
+
+
+def mla_decode_layers(cfg):
+    """MLA's decode kernel's launches a decode step: one per layer of a
+    bf16 MLA model (deepseek); none for any other."""
+    bf16 = cfg.policy.compute_dtype == "bfloat16"
+    return cfg.n_layers if cfg.mla is not None and bf16 else 0
 
 
 def phase_serve(cfg, dev):
@@ -1511,6 +1643,7 @@ def phase_serve(cfg, dev):
     from repro_torch.configs import get
     from repro_torch.kernels import ame_gemm as k1
     from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import mla_decode as km
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.models import model as lm
     from repro_torch.serve.loop import Request, Server
@@ -1540,7 +1673,7 @@ def phase_serve(cfg, dev):
         srv.submit(r)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    k1.launches = k4.launches = kd.launches = 0       # main path starts
+    k1.launches = k4.launches = kd.launches = km.launches = 0  # starts
     k1.launches_by_variant.update(mma=0, fma=0)
     k4.launches_by_variant.update(mma=0, fma=0)
     t0 = time.perf_counter()
@@ -1549,7 +1682,8 @@ def phase_serve(cfg, dev):
     wall = time.perf_counter() - t0
     launches = {"ame_gemm": k1.launches,              # main path ends
                 "ssd_scan": k4.launches,
-                "decode_attention": kd.launches}
+                "decode_attention": kd.launches,
+                "mla_decode": km.launches}
     k1_variants = dict(k1.launches_by_variant)
     k4_variants = dict(k4.launches_by_variant)
     tokens = sum(len(r.out_tokens) for r in done)
@@ -1558,7 +1692,8 @@ def phase_serve(cfg, dev):
             "ssd_scan": cfg.n_layers * sum(len(p) > 1 for p in prompts)
             if scan else 0,
             "decode_attention": decode_attention_layers(cfg)
-            * srv.decode_steps}
+            * srv.decode_steps,
+            "mla_decode": mla_decode_layers(cfg) * srv.decode_steps}
     log(f"[serve] {len(done)} requests, {tokens} tokens, {srv.prefills} "
         f"prefills (prompts {sorted(len(p) for p in prompts)}) + "
         f"{srv.decode_steps} decode steps in {wall:.3f}s wall "
@@ -3071,13 +3206,15 @@ def check_bounds(records):
 
 
 def kernels_line(k1_records, k4_records, k2_records, k3_records,
-                 da_records, serves, ops_launches):
+                 da_records, mla_records, serves, ops_launches):
     """K1's entry: one qwen3 decode layer's seven calls at M = SLOTS,
     summed; its ``fma`` entry, the quickstart's one f32 call, the only
     main-path launch of that variant.  K4's entry: one layer's scan of the LONG_PROMPT-token prefill
     of the mamba serve, with the variant it took.  K2's: an (8192, 8192)
     bf16 add.  K3's: one qwen3-1.7b layer's causal prefill attention.
     The decode attention's: one layer of the chat cell's decode step.
+    MLA's decode kernel's: one layer of deepseek-v3.chat-64's decode
+    step.
     ``launches``: each kernel's count on the paths that run it (the
     serves, the train phase's kernel-backend losses, the VLM's prefill and
     decode, the ops path).  ``ms`` and ``library_ms`` are CUDA-event times of eager calls (host
@@ -3104,6 +3241,10 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records,
     da_path = {model: s["launches"]["decode_attention"]
                for model, s in serves.items()
                if "decode_attention" in s.get("launches", {})}
+    mla = [r for r in mla_records if r["kind"] == "deepseek-v3.chat-64"][0]
+    mla_path = {model: s["launches"]["mla_decode"]
+                for model, s in serves.items()
+                if s.get("launches", {}).get("mla_decode")}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "device_ms", "library_device_ms")
     return {"kernels": [{
@@ -3190,6 +3331,23 @@ def kernels_line(k1_records, k4_records, k2_records, k3_records,
                 f"{da['g']},{da['d']}), {da['live_keys']} live keys, bf16; "
                 f"library scaled_dot_product_attention over the whole "
                 f"cache",
+    }, {
+        "name": "mla_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": "no Pallas kernel: MLA's decode branch of "
+                    "models/attention.py:mla_apply, cat + chunked_attention "
+                    "(plain jnp in the reference)",
+        "launches": sum(mla_path.values()),
+        "launches_by_path": mla_path,
+        "max_abs_err": max(r["max_abs_err"] for r in mla_records),
+        **{key: mla[key] for key in timed + (
+            "host_us", "plain_host_us", "plain_device_ms", "chunked_ms")},
+        "work": f"one layer of deepseek-v3.chat-64's decode step: "
+                f"(b,clen,h,r,rd)=({mla['b']},{mla['clen']},{mla['h']},"
+                f"{mla['r']},{mla['rd']}), {mla['live_keys']} live keys, "
+                f"bf16; library scaled_dot_product_attention with the heads "
+                f"as the queries of one KV head",
     }]}
 
 
@@ -3231,6 +3389,7 @@ def phases_on_card(name, smi):
     k2_records = phase_elementwise(dev)
     k3_records = phase_attention(dev)
     da_records = phase_decode_attention(dev)
+    mla_records = phase_mla_decode(dev)
     phase_engine(dev)
     phase_runtime(dev, name)
     serves = {"quickstart": phase_quickstart(dev)}
@@ -3257,9 +3416,9 @@ def phases_on_card(name, smi):
     serves[f"mesh:{qwen.name}"] = phase_mesh(qwen, dev)
     train_summary(smi, k1_records, serves)
     check_bounds(k1_records + k4_records + k2_records + k3_records
-                 + da_records)
+                 + da_records + mla_records)
     return k1_records, k4_records, k2_records, k3_records, da_records, \
-        serves, ops_launches
+        mla_records, serves, ops_launches
 
 
 if __name__ == "__main__":

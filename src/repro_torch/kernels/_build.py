@@ -17,8 +17,9 @@ build raises; there is no fallback.
 
 The wrappers bind their C entry points through :func:`entry` (each keeps
 its argtypes beside its C signature), raise :func:`launch_error` for a
-launch's nonzero return code, and refuse autograd with
-:func:`forward_only`.
+launch's nonzero return code, refuse autograd with :func:`forward_only`,
+and the decode kernels that merge key splits count arrivals in
+:func:`arrival_counts`.
 """
 from __future__ import annotations
 
@@ -48,6 +49,9 @@ _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 #: name -> {"seconds": build wall time (0.0 when cached), "ptxas": the
 #: ``-Xptxas -v`` register / shared-memory lines of the last build}
 BUILD_INFO: Dict[str, Dict] = {}
+#: device index -> the int32 arrival counts of the split kernels
+#: (:func:`arrival_counts`)
+_COUNTS: Dict[int, torch.Tensor] = {}
 
 
 def sources() -> List[str]:
@@ -160,6 +164,18 @@ def launch_error(rc: int, what: str, at: str) -> RuntimeError:
     """The error a wrapper raises for a launch's nonzero return code
     ``rc``: ``"<what> launch failed: cudaError <rc> at <at>"``."""
     return RuntimeError(f"{what} launch failed: cudaError {rc} at {at}")
+
+
+def arrival_counts(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, one buffer a device for
+    every kernel that merges its key splits in the same launch: each
+    counts a group's arriving blocks in it and leaves it zeroed, so
+    launches that share it run on one stream, one after another."""
+    buf = _COUNTS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTS[device.index] = buf
+    return buf
 
 
 def forward_only(what: str, *tensors: torch.Tensor) -> None:

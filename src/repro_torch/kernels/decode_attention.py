@@ -31,7 +31,7 @@ PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,9 +63,6 @@ C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 \
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
 
-#: device index -> the int32 arrival counts, zero between launches
-_COUNTS: Dict[int, torch.Tensor] = {}
-
 
 def group_block(g: int) -> int:
     """G, the query heads one block covers, for a group of ``g`` heads."""
@@ -81,14 +78,6 @@ def splits(b: int, blocks: int, clen: int) -> Tuple[int, int]:
     n = max(1, min(want, MAX_SPLITS, -(-clen // MIN_SPLIT)))
     split_len = -(-clen // n)
     return split_len, -(-clen // split_len)
-
-
-def _counts(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTS.get(device.index)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _COUNTS[device.index] = buf
-    return buf
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,7 +152,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"on 16 bytes, got {tuple(out.shape)} {out.dtype}")
     ws = torch.empty(b * blocks * nsplit * G * (d + 2) if nsplit > 1 else 0,
                      dtype=torch.float32, device=q.device)
-    counts = _counts(q.device, b * blocks)
+    counts = _build.arrival_counts(q.device, b * blocks)
     fn = _build.entry("decode_attention", "decode_attention", C_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_positions.data_ptr(), q_positions.data_ptr(),

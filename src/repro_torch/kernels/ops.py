@@ -17,7 +17,8 @@ on each rank's local shards: K1 through ``models.layers.sharded_matmul``,
 K4 through :func:`ssd4`.
 
 Every launch of a hand-written kernel on the model path (K1 from
-:func:`gemm`, the decode attention from ``models/attention.py``) goes
+:func:`gemm`, the decode attention and MLA's decode attention from
+``models/attention.py``) goes
 through :func:`launch`, which looks the wrapper up by name on this module
 at the call, so that a wrapper put in its place is the one called, and
 which hands the launch to :data:`split` while one is set:
@@ -38,6 +39,7 @@ from repro_torch.kernels.ame_gemm import ame_gemm
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.elementwise import ame_elementwise
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.sharding.context import placed
 

@@ -8,7 +8,9 @@ live score tensor is (B, q_chunk, H, chunk).  One exception: a
 window-free decode over CUDA tensors attends with the port's own kernel
 (:mod:`repro_torch.kernels.decode_attention`), which computes the same
 function in one launch over the cache as it is stored (the sharded step
-on each rank's local shards, where the KV heads divide the model axis).
+on each rank's local shards, where the KV heads divide the model axis),
+and so does a bf16 MLA decode over plain CUDA tensors
+(:mod:`repro_torch.kernels.mla_decode`).
 
 Caches are updated in place (the reference donates them to its jitted
 decode step, which permits the same).  The reference's sharding
@@ -377,7 +379,11 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     head (``ckv`` is also the value), then ``W_uv`` maps each head's
     output up; no per-head K or V is ever built.  ``wdq``, ``wuq``,
     ``wdkv``, ``wkr`` and ``wo`` are ``dense()`` products; ``wuk`` and
-    ``wuv`` are einsums, as in the reference."""
+    ``wuv`` are einsums, as in the reference.  A bf16 decode over plain
+    CUDA tensors attends with the port's MLA kernel
+    (:mod:`repro_torch.kernels.mla_decode`), which reads ``ckv`` and ``kr``
+    in place; CPU tensors, f32, DTensors and prefills keep
+    :func:`chunked_attention`."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.n_heads
@@ -394,7 +400,8 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
               cfg.rope_theta, freq)[:, :, 0]                  # shared head
 
     pos = positions[:, 0] if positions.dim() > 1 else positions  # (B,)
-    if cache is not None and t == 1:
+    decode = cache is not None and t == 1
+    if decode:
         put_slots(cache["ckv"], pos, ckv[:, 0])
         put_slots(cache["kr"], pos, kr[:, 0])
         ckv_all, kr_all = cache["ckv"], cache["kr"]
@@ -408,14 +415,20 @@ def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     q_lat = einsum("bthn,rhn->bthr", qn, wuk)           # (B,T,H,r)
     qq = torch.cat([q_lat, qr], -1)                           # (B,T,H,r+rd)
     qq = constrain(qq, "batch", None, "model", None)
-    kk = torch.cat([ckv_all, kr_all], -1)[:, :, None, :]      # (B,Tk,1,r+rd)
-    # gather the latent KV across the seq dim once per layer
-    kk = constrain(kk, "batch", None, None, None)
-    ckv_all = constrain(ckv_all, "batch", None, None)
     scale_fix = ((nd + rd) ** -0.5) / ((m.kv_lora_rank + rd) ** -0.5)
     scale_fix *= yarn_mscale(m.yarn_factor, m.yarn_mscale_all_dim) ** 2
-    out = chunked_attention(qq * scale_fix, kk, ckv_all[:, :, None, :],
-                            causal=True, chunk=chunk, q_offset=pos)
+    if decode and qq.dtype == torch.bfloat16 \
+            and takes_decode_kernel(qq, ckv_all, kr_all):
+        # one launch over the bf16 latent cache as it is stored, live
+        # positions only
+        out = ops.launch("mla_decode", qq * scale_fix, ckv_all, kr_all, pos)
+    else:
+        kk = torch.cat([ckv_all, kr_all], -1)[:, :, None, :]  # (B,Tk,1,r+rd)
+        # gather the latent KV across the seq dim once per layer
+        kk = constrain(kk, "batch", None, None, None)
+        ckv_all = constrain(ckv_all, "batch", None, None)
+        out = chunked_attention(qq * scale_fix, kk, ckv_all[:, :, None, :],
+                                causal=True, chunk=chunk, q_offset=pos)
     wuv = p["wuv"]["w"].to(q.dtype).reshape(m.kv_lora_rank, h, vd)
     out = einsum("bthr,rhv->bthv", out, wuv)
     y = dense(p["wo"], out.reshape(b, t, h * vd), backend)

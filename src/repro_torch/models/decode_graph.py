@@ -4,7 +4,7 @@ An eager decode step issues every operation of every layer from Python:
 a few thousand small launches a step, whose issue the card waits for.
 :func:`run`, which ``models.model.decode_step`` calls with its body,
 captures the body's torch operations once into CUDA graphs and replays
-them; the port's hand-written kernels (K1, the decode attention) are
+them; the port's hand-written kernels (K1, the decode attentions) are
 still launched from Python, each between two graphs.
 
 **Pieces.**  While a step is captured, every launch of a hand-written
@@ -46,7 +46,8 @@ captured: the pieces are captured with no recorder active
 (``obs.spans.ACTIVE`` None), and the launches between them run under
 the caller's.  Under a recorder a capturing or replaying step is one
 ``model.decode_step`` span that carries ``graph: "capture"`` or
-``"replay"`` and the records of its K1 and decode attention launches,
+``"replay"`` and the records of its K1 and decode attention launches
+(``decode_attention`` or ``mla_decode``),
 with no span inside it.
 
 **Lifetime.**  A graph belongs to its buffers: it goes, with its memory

@@ -28,14 +28,16 @@ A :class:`SpanRecorder` given to ``Server(spans=...)`` (or set as
   ``held_reached``, the held experts with at least one.
 
 * **launch records** of K1 (``ame_gemm``: m, k, n, in_bytes,
-  out_bytes) and of the decode attention (``decode_attention``: slots b,
-  KV heads hkv, group size g, head dim d, cache length clen, in_bytes),
-  each with the id of the span open at the launch and a stamp.
+  out_bytes), of the decode attention (``decode_attention``: slots b,
+  KV heads hkv, group size g, head dim d, cache length clen, in_bytes)
+  and of MLA's decode attention (``mla_decode``: slots b, heads h,
+  latent and rope widths r and rd, cache length clen, in_bytes), each
+  with the id of the span open at the launch and a stamp.
 
 * **a decode step run from its CUDA graph.**  On the card
   ``model.decode_step`` runs its torch operations from CUDA graphs of
   its buffers from their second call on (``models/decode_graph.py``),
-  and launches K1 and the decode attention from Python between them.
+  and launches K1 and the decode attentions from Python between them.
   Such a step's span carries ``graph: "capture"`` (the call that
   captured the graphs) or ``graph: "replay"``, and the records of all
   its launches, as an eager step's; it has no ``model.attention``,
@@ -72,7 +74,8 @@ NULL = contextlib.nullcontext()
 #: takes them
 LAUNCH_FIELDS = {"k1": ("m", "k", "n", "in_bytes", "out_bytes"),
                  "decode_attention": ("b", "hkv", "g", "d", "clen",
-                                      "in_bytes")}
+                                      "in_bytes"),
+                 "mla_decode": ("b", "h", "r", "rd", "clen", "in_bytes")}
 
 _now = time.perf_counter_ns
 

@@ -440,6 +440,30 @@ def test_the_decode_route_hands_its_launch_to_the_split(monkeypatch):
     assert handed == ["decode_attention"] * cfg.n_layers
 
 
+def test_the_mla_decode_route_hands_its_launch_to_the_split(monkeypatch):
+    """MLA's decode kernel is launched through ``ops.launch`` by its name
+    too, so a capture takes it out of its pieces: once a layer, with the
+    layer's latent cache."""
+    from repro_torch.kernels import mla_decode as km
+    from repro_torch.models import attention
+    cfg = get("deepseek-v3-671b").reduced().with_policy(
+        compute_dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    caches, nxt, pos = _prefilled(cfg, params, 2, 16, "cpu")
+    handed = []
+
+    def split(name, args, kw):
+        handed.append((name, args[1].data_ptr()))
+        return km.plain(*args)
+    monkeypatch.setattr(attention, "takes_decode_kernel", lambda *t: True)
+    monkeypatch.setattr(ops, "split", split)
+    lm.decode_step(params, nxt, pos, caches, cfg)
+    ckv = [c["ckv"][i].data_ptr() for c in caches.values()
+           for i in range(c["ckv"].shape[0])]
+    assert handed == [("mla_decode", p) for p in ckv]
+    assert len(handed) == cfg.n_layers
+
+
 def _serve(cfg, params, device, spans_after=None):
     """A reduced qwen3 served from five requests; with ``spans_after`` a
     recorder is set after that many steps."""

@@ -837,6 +837,161 @@ def test_decode_attention_rejects_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# MLA's decode kernel against the decode branch's cat + chunked_attention
+# ---------------------------------------------------------------------------
+
+
+def _mla_case(b, clen, h, r, rd, device, positions, seed=0):
+    """qq and a bf16 latent cache as MLA's decode branch hands them over:
+    every position of the cache written (stale entries past a slot's
+    position included), the positions ragged."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qq = torch.randn(b, 1, h, r + rd, generator=gen, device=device)
+    ckv = torch.randn(b, clen, r, generator=gen, device=device)
+    kr = torch.randn(b, clen, rd, generator=gen, device=device)
+    pos = torch.as_tensor(positions, dtype=torch.long, device=device)
+    return qq.bfloat16(), ckv.bfloat16(), kr.bfloat16(), pos
+
+
+@pytest.mark.parametrize("b,clen,h,r,rd", [
+    (64, 1312, 128, 512, 64),      # the cell deepseek-v3.chat-64's step
+    (8, 64, 128, 512, 64),         # a short cache: one split a slot
+    (3, 90, 4, 32, 16),            # the reduced configurations
+    (5, 700, 100, 512, 64),        # heads that do not fill a block
+], ids=str)
+def test_mla_decode_matches_its_plain_version(cuda, b, clen, h, r, rd):
+    """The kernel against ``cat`` + chunked_attention, as the decode
+    branch computed it, at ragged positions with 0 and clen - 1 among
+    them: within one bf16 ulp of the output's scale (only the order of
+    the sums differs); the same launch again gives the same bits."""
+    from repro_torch.kernels import mla_decode as km
+    args = _mla_case(b, clen, h, r, rd, cuda, _ragged(b, clen, seed=b + h))
+    before = km.launches
+    got = km.mla_decode(*args)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    want = km.plain(*args)
+    assert got.shape == want.shape == (b, 1, h, r)
+    assert got.dtype == want.dtype == torch.bfloat16
+    ulp = bf16_ulp(want.float())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ulp, (err, ulp)
+    # the arrival counts were left at zero, and no sum depends on the
+    # order the blocks ran in
+    assert torch.equal(km.mla_decode(*args), got)
+
+
+def test_mla_decode_reads_no_key_past_the_slot(cuda):
+    """Latents past a slot's position are never read: NaN there (which
+    any read would spread) leaves the output finite and unchanged."""
+    from repro_torch.kernels import mla_decode as km
+    qq, ckv, kr, pos = _mla_case(16, 1312, 128, 512, 64, cuda,
+                                 _ragged(16, 1312, seed=3))
+    want = km.mla_decode(qq, ckv, kr, pos)
+    past = torch.arange(1312, device=cuda)[None, :] > pos[:, None]
+    ckv[past], kr[past] = float("nan"), float("nan")
+    got = km.mla_decode(qq, ckv, kr, pos, out=torch.empty_like(want))
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def _mla_serve(cfg, params, device, spans=None):
+    from repro_torch.serve.loop import Request, Server
+    import numpy as np
+    srv = Server(cfg, params, slots=3, cache_len=48, backend="kernel",
+                 device=device, spans=spans)
+    rng = np.random.default_rng(0)
+    for uid in range(5):
+        srv.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, 6 + 4 * uid).astype(np.int32), max_new=7))
+    srv.run_until_drained()
+    return srv
+
+
+def test_mla_decode_launch_counter_counts_kernel_launches_only(cuda):
+    """A bf16 MLA decode on the card launches the kernel once a layer; an
+    f32 one and a GQA model's launch none."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import mla_decode as km
+    from repro_torch.models import model as lm
+    for name, dtype, per_step in (("deepseek-v3-671b", "bfloat16", 4),
+                                  ("deepseek-v3-671b", "float32", 0),
+                                  ("qwen3-1.7b", "bfloat16", 0)):
+        cfg = get(name).reduced().with_policy(compute_dtype=dtype,
+                                              param_dtype=dtype)
+        params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda)
+        with torch.no_grad():
+            lg, caches = lm.prefill(params, {"tokens": toks}, cfg, 24)
+            before = km.launches
+            pos = torch.full((2,), 20, device=cuda)
+            lm.decode_step(params, lg.argmax(-1)[:, None], pos, caches, cfg)
+        assert km.launches - before == per_step, (name, dtype)
+
+
+def test_a_reduced_deepseek_server_serves_the_same_tokens_replayed(
+        cuda, monkeypatch):
+    """A reduced bf16 DeepSeek-V3 ``Server`` on the card, its decode steps
+    replayed from their CUDA graphs with the MLA kernel launched between
+    the pieces, serves the tokens it serves with every step eager; the
+    kernel runs once a layer of every decode step either way."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import mla_decode as km
+    from repro_torch.models import decode_graph as dg
+    from repro_torch.models import model as lm
+    cfg = get("deepseek-v3-671b").reduced().with_policy(
+        compute_dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    served = []
+    for graphs in (True, False):
+        with monkeypatch.context() as mp:
+            if not graphs:
+                mp.setattr(dg, "engages", lambda ts: False)
+            before, replays = km.launches, dg.replays
+            srv = _mla_serve(cfg, params, cuda)
+            assert km.launches - before == cfg.n_layers * srv.decode_steps
+            assert (dg.replays - replays > 0) == graphs
+        served.append({r.uid: r.out_tokens for r in srv.completed})
+    assert served[0] == served[1] and len(served[0]) == 5
+
+
+def test_mla_decode_records_one_launch_a_layer(cuda):
+    """Under a span recorder every decode step of a reduced bf16
+    DeepSeek-V3 carries one ``mla_decode`` record a layer, naming the
+    slots, heads, widths and cache; a prefill carries none."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import mla_decode as km
+    from repro_torch.models import model as lm
+    from repro_torch.obs import SpanRecorder
+    cfg = get("deepseek-v3-671b").reduced().with_policy(
+        compute_dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    before = km.launches
+    srv = _mla_serve(cfg, params, cuda, spans=SpanRecorder())
+    recs = srv.spans.records()
+    by_id = {s["id"]: s for s in recs["spans"]}
+    mine = [ln for ln in recs["launches"] if ln["kernel"] == "mla_decode"]
+    assert len(mine) == km.launches - before \
+        == cfg.n_layers * srv.decode_steps > 0
+    per = {}
+    for ln in mine:
+        at = by_id[ln["span"]]
+        while at["name"] != "model.decode_step":
+            assert at["name"] != "model.prefill"
+            at = by_id[at["parent"]]
+        per[at["id"]] = per.get(at["id"], 0) + 1
+        m = cfg.mla
+        assert (ln["b"], ln["h"], ln["r"], ln["rd"], ln["clen"],
+                ln["in_bytes"]) == (3, cfg.n_heads, m.kv_lora_rank,
+                                    m.qk_rope_dim, 48, 2)
+    steps = [s for s in recs["spans"] if s["name"] == "model.decode_step"]
+    assert len(steps) == srv.decode_steps
+    assert all(per.get(s["id"]) == cfg.n_layers for s in steps)
+
+
+# ---------------------------------------------------------------------------
 # the PIM runtime: numerics on the card, bit for bit with the CPU
 # ---------------------------------------------------------------------------
 

@@ -279,6 +279,19 @@ def test_decode_attention_records_carry_their_fields():
                       b=32, hkv=8, g=2, d=128, clen=1312, in_bytes=2)
 
 
+def test_mla_decode_records_carry_their_fields():
+    """MLA's decode kernel's record names its shape: slots, heads, latent
+    and rope widths, cache length and element bytes."""
+    rec = SpanRecorder()
+    top = rec.open("serve.step")
+    sid = rec.open("model.attention")
+    rec.launch("mla_decode", 64, 128, 512, 64, 1312, 2)
+    rec.close(top)
+    (ln,) = rec.records()["launches"]
+    assert ln == dict(kernel="mla_decode", span=sid, t_ns=ln["t_ns"],
+                      b=64, h=128, r=512, rd=64, clen=1312, in_bytes=2)
+
+
 def test_span_is_the_shared_null_when_off_and_closes_on_a_raise():
     """With no recorder ``spans.span`` returns the shared ``NULL`` (bound
     to None) and ``note`` / ``record_launch`` record nothing; under one,
